@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""Smoke run of mtr_tpu_torch on one CUDA card (sm_90a: H100 / H200).
+
+    python3 chip_smoke.py        # from the repository root
+
+Phases, in order; any failure exits non-zero before the result line:
+  1. preflight: a CUDA card, the native host engine (built with make at
+     first use), the card's name and power limit, the kernel build;
+  2. the counts kernel against its plain PyTorch version on the card
+     (rep_len <= 2048, every unit span, degenerate jobs) and against the
+     native host engine at main-path sizes, with zero tolerance: the
+     results are integers;
+  3. the main path: the port's hybrid engine on the bench's 200 bp x 200
+     copy set (20 reads of ~120 kb), byte-identical to mtr_tpu's host
+     backend, with kernel launches and device-leg cells counted; then the
+     in-repo 100x10 golden;
+  4. kernel times with CUDA events at the bench's GCUPS shapes, and the
+     plain version's time at the first of them.
+
+The next-to-last line is the kernels' JSON record, the last line
+{"ok": true, "device": {...}}.  JAX is never imported: a meta-path hook
+refuses it.
+"""
+
+from __future__ import annotations
+
+import importlib.abc
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SCHEMES = ((1, 1, 3), (1, 3, 1), (5, 1, 1))
+UNIT_LENS = (2, 7, 100, 128, 129, 200, 256, 257, 480, 500)
+# kernel columns the native engine reports: m, x, ins, del, scanned,
+# i_final, max_i (mtr_tpu/pipeline.py:821)
+NATIVE_COLS = [0, 1, 2, 3, 4, 5, 9]
+REPLACES = ("mtr_tpu/ops/wrap_dp_fused2.py:68, "
+            "mtr_tpu/ops/wrap_dp_fused2w.py:96, "
+            "mtr_tpu/ops/wrap_dp_fused.py:63")
+
+
+class _NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError(f"chip_smoke imports no JAX (asked: {name})")
+        return None
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def info(*parts):
+    print(*parts, flush=True)
+
+
+# ---------------------------------------------------------------- jobs
+
+
+def periodic_rep(rng, unit, rep_len, err=0.12):
+    """unit tiled to rep_len with substitutions, insertions, deletions."""
+    import numpy as np
+
+    out = []
+    j = 0
+    while len(out) < rep_len:
+        x = rng.random()
+        if x < err / 3:
+            out.append(int(rng.integers(0, 4)))          # insertion
+        elif x < 2 * err / 3:
+            j += 1                                        # deletion
+        elif x < err:
+            out.append(int(rng.integers(0, 4)))          # substitution
+            j += 1
+        else:
+            out.append(int(unit[j % len(unit)]))
+            j += 1
+    return np.asarray(out[:rep_len], np.int8)
+
+
+def make_batch(jobs, u_span):
+    """jobs: (rep int8, unit, scheme) -> resident inputs (numpy)."""
+    import numpy as np
+
+    b = len(jobs)
+    flat = np.concatenate([rep for rep, _, _ in jobs] + [np.zeros(1, np.int8)])
+    starts = np.zeros(b, np.int32)
+    scal = np.zeros((b, 8), np.int32)
+    units = np.full((b, u_span), -2, np.int8)
+    p = 0
+    for q, (rep, unit, scheme) in enumerate(jobs):
+        starts[q] = p
+        p += len(rep)
+        scal[q, :5] = (len(rep), len(unit), *scheme)
+        units[q, : len(unit)] = unit
+    return flat, starts, scal, units
+
+
+def run_kernel(batch, u_span):
+    import torch
+
+    from mtr_tpu_torch.ops.wrap_dp_counts import wrap_dp_counts
+
+    t = [torch.from_numpy(a).cuda() for a in batch]
+    out = wrap_dp_counts(*t, u_span)
+    torch.cuda.synchronize()
+    return out.cpu().numpy()
+
+
+# -------------------------------------------------------------- phases
+
+
+def preflight():
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    from mtr_tpu import native
+
+    t0 = time.perf_counter()
+    check(native.available(), "native host engine (native/libmtr_host.so) "
+          "did not build: the host leg would drop to the Python oracle")
+    info(f"native host engine ready in {time.perf_counter() - t0:.1f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    info(smi.stdout.strip().splitlines()[0])
+    info(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    from mtr_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    info(f"kernel build (nvcc, fresh checkout) and load: "
+         f"{time.perf_counter() - t0:.2f} s")
+
+
+def kernel_vs_references():
+    """Returns the largest absolute difference seen (must be 0)."""
+    import numpy as np
+    import torch
+
+    from mtr_tpu import native
+    from mtr_tpu_torch.ops.wrap_dp_counts import wrap_dp_counts_plain
+    from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
+    from mtr_tpu_torch.pipeline import _u_span
+
+    rng = np.random.default_rng(20240)
+    worst = 0
+    # (a) against the plain version on the card, rep_len <= 2048
+    by_span: dict = {}
+    for ul in UNIT_LENS:
+        for scheme in SCHEMES:
+            unit = rng.integers(0, 4, ul).astype(np.int8)
+            rl = int(rng.integers(ul, 2049))
+            by_span.setdefault(_u_span(ul), []).extend([
+                (periodic_rep(rng, unit, rl), unit, scheme),
+                # deletion-heavy, non-periodic
+                (rng.integers(0, 4, int(rng.integers(1, 2049))).astype(
+                    np.int8), unit, scheme),
+            ])
+    for scheme in SCHEMES:  # degenerate: rep_len 1 and 0, unit_len 2
+        by_span[128] += [
+            (np.array([1], np.int8), np.array([1, 2], np.int8), scheme),
+            (np.array([3], np.int8), np.array([3, 3], np.int8), scheme),
+            (np.zeros(0, np.int8), np.array([0, 0], np.int8), scheme),
+        ]
+    for u_span, jobs in sorted(by_span.items()):
+        batch = make_batch(jobs, u_span)
+        got = run_kernel(batch, u_span)
+        flat, starts, scal, units = (torch.from_numpy(a).cuda()
+                                     for a in batch)
+        r_pad = max(1, int(batch[2][:, 0].max()))
+        want = wrap_dp_counts_plain(
+            scal, gather_segments(flat, starts, r_pad), units).cpu().numpy()
+        diff = np.abs(got[:, :11].astype(np.int64) - want[:, :11])
+        bad = int((diff.max(axis=1) > 0).sum())
+        worst = max(worst, int(diff.max()))
+        info(f"kernel vs plain on the card, u_span {u_span}: {len(jobs)} "
+             f"jobs, rep_len <= {r_pad}, {bad} mismatching")
+        check(bad == 0, f"kernel disagrees with the plain version "
+              f"(u_span {u_span})")
+
+    # (b) against the native host engine at main-path sizes
+    sizes = ((100, 4096), (200, 32767), (200, 32768), (480, 20000),
+             (100, 262000))
+    jobs = []
+    for ul, rl in sizes:
+        unit = rng.integers(0, 4, ul).astype(np.int8)
+        for scheme in SCHEMES:
+            jobs.append((periodic_rep(rng, unit, rl), unit, scheme))
+    by_span = {}
+    for q, job in enumerate(jobs):
+        by_span.setdefault(_u_span(len(job[1])), []).append(q)
+    got = np.zeros((len(jobs), 15), np.int32)
+    for u_span, idx in by_span.items():
+        got[idx] = run_kernel(make_batch([jobs[q] for q in idx], u_span),
+                              u_span)
+    orgs = [np.concatenate([[0], rep]).astype(np.int32)
+            for rep, _, _ in jobs]
+    units = np.zeros((len(jobs), 500), np.int32)
+    for q, (_, unit, _) in enumerate(jobs):
+        units[q, : len(unit)] = unit
+    t0 = time.perf_counter()
+    counts = native.wrap_dp_batch(
+        orgs, [0] * len(jobs), [len(rep) - 1 for rep, _, _ in jobs], units,
+        [len(u) for _, u, _ in jobs], [s for _, _, s in jobs],
+        [0] * len(jobs))[0][: len(jobs)].copy()
+    diff = np.abs(got[:, NATIVE_COLS].astype(np.int64) - counts)
+    bad = int((diff.max(axis=1) > 0).sum())
+    worst = max(worst, int(diff.max()))
+    info(f"kernel vs native host engine: {len(jobs)} jobs "
+         f"(unit, rep_len) in {sizes} x 3 schemes, {bad} mismatching "
+         f"(native {time.perf_counter() - t0:.1f} s)")
+    check(bad == 0, "kernel disagrees with the native host engine")
+    return worst
+
+
+def main_path(tmp):
+    """The port's hybrid on the bench set vs mtr_tpu's host backend."""
+    import io
+
+    from mtr_tpu.config import MTRConfig
+    from mtr_tpu.pipeline import run_file as host_run_file
+    from mtr_tpu.testutil.rand_seq import write_fasta
+    from mtr_tpu_torch.ops import wrap_dp_counts as op
+    from mtr_tpu_torch.pipeline import make_batcher, run_file
+
+    fasta = os.path.join(tmp, "bench_200x200.fasta")
+    n_reads = 20
+    t0 = time.perf_counter()
+    write_fasta(fasta, fasta[:-6] + ".units", 200, 200, 9.7, 2.9, 7.5,
+                40000, 40000, n_reads, seed=20200)
+    info(f"bench set: {n_reads} reads, {os.path.getsize(fasta)} bytes, "
+         f"generated in {time.perf_counter() - t0:.1f} s")
+
+    cfg = MTRConfig(backend="hybrid")
+    batcher = make_batcher(cfg)
+    op.LAUNCHES = 0
+    t0 = time.perf_counter()
+    port_out = io.StringIO()
+    run_file(fasta, cfg, port_out, batcher=batcher)
+    dt_port = time.perf_counter() - t0
+    launches = op.LAUNCHES
+
+    t0 = time.perf_counter()
+    host_out = io.StringIO()
+    host_run_file(fasta, MTRConfig(backend="host"), host_out)
+    dt_host = time.perf_counter() - t0
+
+    dev, host = batcher.device.cells, batcher.host_cells
+    n_lines = port_out.getvalue().count("\n")
+    info(f"bench set, port hybrid: {dt_port:.3f} s, "
+         f"{n_reads / dt_port:.3f} reads/s, {n_lines} records, "
+         f"{launches} kernel launches")
+    info(f"bench set, mtr_tpu host: {dt_host:.3f} s, "
+         f"{n_reads / dt_host:.3f} reads/s")
+    info(f"bench set, counts DP cells: device {dev}, host {host}, "
+         f"device share {dev / max(dev + host, 1):.4f}")
+    check(port_out.getvalue() == host_out.getvalue(),
+          "port hybrid output differs from mtr_tpu host output")
+    check(n_lines > 0, "no records on the bench set")
+    check(launches > 0, "the main path launched no kernel")
+    check(dev > 0, "the device leg computed no DP cell")
+
+    golden = os.path.join(HERE, "tests", "golden", "multi20_100x10")
+    cfg = MTRConfig(backend="hybrid")
+    batcher = make_batcher(cfg)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    run_file(golden + ".fasta", cfg, out, batcher=batcher)
+    dt = time.perf_counter() - t0
+    with open(golden + ".out") as f:
+        check(out.getvalue() == f.read(),
+              "port hybrid output differs from the 100x10 golden")
+    info(f"100x10 golden, port hybrid: identical, {dt:.3f} s, "
+         f"{100 / dt:.1f} reads/s, device cells {batcher.device.cells}")
+    return launches
+
+
+def time_kernel():
+    """CUDA-event times at the bench's GCUPS shapes (bench.py:395-397)."""
+    import numpy as np
+    import torch
+
+    from mtr_tpu_torch.ops.wrap_dp_counts import (
+        wrap_dp_counts,
+        wrap_dp_counts_plain,
+    )
+    from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
+
+    rng = np.random.default_rng(395)
+
+    def inputs(b, ul, rl, u_span):
+        unit = rng.integers(0, 4, ul).astype(np.int8)
+        rep = periodic_rep(rng, unit, rl + b)
+        flat = np.lib.stride_tricks.sliding_window_view(rep, rl)[:b]
+        jobs = [(flat[q], unit, (1, 1, 3)) for q in range(b)]
+        return [torch.from_numpy(a).cuda() for a in make_batch(jobs, u_span)]
+
+    def elapsed_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    res = {}
+    for b, ul, rl, u_span, n in ((2048, 100, 4096, 128, 5),
+                                 (1024, 200, 32768, 256, 2)):
+        args = inputs(b, ul, rl, u_span)
+        ms = elapsed_ms(lambda: wrap_dp_counts(*args, u_span), n)
+        gcups = b * ul * rl / (ms * 1e-3) / 1e9
+        info(f"kernel, unit {ul} x rep_len {rl} x {b} jobs (u_span "
+             f"{u_span}): {ms:.3f} ms/launch, {gcups:.2f} GCUPS")
+        res[ul] = (ms, args)
+    ms, args = res[100]
+    flat, starts, scal, units = args
+
+    def plain():
+        rep = gather_segments(flat, starts, 4096)
+        return wrap_dp_counts_plain(scal, rep, units)
+
+    plain_ms = elapsed_ms(plain, 1)
+    info(f"plain version on the card, unit 100 x rep_len 4096 x 2048 jobs: "
+         f"{plain_ms:.1f} ms/call, kernel {ms:.3f} ms "
+         f"({plain_ms / ms:.0f}x)")
+    return ms, plain_ms
+
+
+def main() -> int:
+    sys.meta_path.insert(0, _NoJax())
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 1
+    t_all = time.perf_counter()
+    try:
+        preflight()
+        worst = kernel_vs_references()
+        build_dir = os.path.join(HERE, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            launches = main_path(tmp)
+        ms, plain_ms = time_kernel()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    info(f"chip_smoke: all phases passed in "
+         f"{time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": [{
+        "name": "wrap_dp_counts",
+        "route": "cuda",
+        "source": "mtr_tpu_torch/csrc/wrap_dp_counts.cu",
+        "replaces": REPLACES,
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
