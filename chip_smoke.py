@@ -5,17 +5,27 @@
 
 Phases, in order; any failure exits non-zero before the result line:
   1. preflight: a CUDA card, the native host engine (built with make at
-     first use), the card's name and power limit, the kernel build;
+     first use), the card's name and power limit, the kernels' build;
   2. the counts kernel against its plain PyTorch version on the card
      (rep_len <= 2048, every unit span, degenerate jobs) and against the
      native host engine at main-path sizes, with zero tolerance: the
      results are integers;
-  3. the main path: the port's hybrid engine on the bench's 200 bp x 200
-     copy set (20 reads of ~120 kb), byte-identical to mtr_tpu's host
+  2b. the consensus kernels (fill + traceback) against their plain
+     versions on the card (units 2-500, three schemes, rep_len <= 2048,
+     degenerate jobs: best and the (B, 500, 9) polish tensor) and against
+     the native host engine at polish sizes, with zero tolerance;
+  3. the hybrid path: the port's hybrid engine on the bench's 200 bp x
+     200 copy set (20 reads of ~120 kb), byte-identical to mtr_tpu's host
      backend, with kernel launches and device-leg cells counted; then the
      in-repo 100x10 golden;
-  4. kernel times with CUDA events at the bench's GCUPS shapes, and the
-     plain version's time at the first of them.
+  3b. the device path: run_file with MTRConfig(backend="device",
+     use_device_walks=False) on the same set, byte-identical to mtr_tpu's
+     host backend, with counts and consensus launches and device-DI
+     passes counted;
+  4. counts kernel times with CUDA events at the bench's GCUPS shapes,
+     and the plain version's time at the first of them;
+  4b. consensus kernel times (fill + traceback, and the fill alone) with
+     CUDA events, the plain version's time, and one device-DI pass.
 
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  JAX is never imported: a meta-path hook
@@ -41,6 +51,14 @@ NATIVE_COLS = [0, 1, 2, 3, 4, 5, 9]
 REPLACES = ("mtr_tpu/ops/wrap_dp_fused2.py:68, "
             "mtr_tpu/ops/wrap_dp_fused2w.py:96, "
             "mtr_tpu/ops/wrap_dp_fused.py:63")
+CONS_UNIT_LENS = (2, 7, 100, 128, 129, 200, 256, 257, 480, 499, 500)
+CONS_REPLACES = ("mtr_tpu/ops/wrap_dp_pallas.py:52 (with "
+                 "traceback_consensus_batch_n, mtr_tpu/ops/"
+                 "wrap_dp_pallas.py:301)")
+# (unit_len, rep_len) of the consensus checks against the native engine:
+# the bench set's largest polish job, and two long ones
+POLISH_SIZES = ((203, 4167), (100, 10000), (480, 10000))
+BENCH_READS = 20  # the bench set's reads (bench.py:87-91)
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -225,6 +243,104 @@ def kernel_vs_references():
     return worst
 
 
+def consensus_vs_references():
+    """Returns the largest absolute difference seen (must be 0)."""
+    import numpy as np
+    import torch
+
+    from mtr_tpu import native
+    from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
+    from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
+    from mtr_tpu_torch.pipeline import _factor, _u_span
+
+    rng = np.random.default_rng(20241)
+    worst = 0
+
+    def run(jobs, u_span, plain=False):
+        t = [torch.from_numpy(a).cuda() for a in make_batch(jobs, u_span)]
+        factor = _factor(s for _, _, s in jobs)
+        fn = consensus_resident_plain if plain else (
+            lambda *a: wrap_dp_consensus(*a[:4], u_span, a[4]))
+        fused, best = fn(*t, factor)
+        torch.cuda.synchronize()
+        return fused.cpu().numpy(), best.cpu().numpy()
+
+    # (a) against the plain version on the card, rep_len <= 2048
+    by_span: dict = {}
+    for ul in CONS_UNIT_LENS:
+        for scheme in SCHEMES:
+            unit = rng.integers(0, 4, ul).astype(np.int8)
+            rl = int(rng.integers(ul, 2049))
+            by_span.setdefault(_u_span(ul), []).extend([
+                (periodic_rep(rng, unit, rl), unit, scheme),
+                (rng.integers(0, 4, int(rng.integers(1, 2049))).astype(
+                    np.int8), unit, scheme),
+            ])
+    for scheme in SCHEMES:  # degenerate: rep_len 1 and 0, unit_len 2
+        by_span[128] += [
+            (np.array([1], np.int8), np.array([1, 2], np.int8), scheme),
+            (np.array([3], np.int8), np.array([3, 3], np.int8), scheme),
+            (np.zeros(0, np.int8), np.array([0, 0], np.int8), scheme),
+        ]
+    for u_span, jobs in sorted(by_span.items()):
+        got, got_best = run(jobs, u_span)
+        want, want_best = run(jobs, u_span, plain=True)
+        diff = np.abs(got.astype(np.int64) - want).reshape(len(jobs), -1)
+        diff_best = np.abs(got_best.astype(np.int64) - want_best)
+        bad = int(((diff.max(axis=1) > 0) | (diff_best.max(axis=1) > 0))
+                  .sum())
+        worst = max(worst, int(diff.max()), int(diff_best.max()))
+        info(f"consensus kernel vs plain on the card, u_span {u_span}: "
+             f"{len(jobs)} jobs, rep_len <= "
+             f"{max(len(r) for r, _, _ in jobs)}, {bad} mismatching")
+        check(bad == 0, f"consensus kernel disagrees with the plain version "
+              f"(u_span {u_span})")
+
+    # (b) against the native host engine at polish sizes
+    jobs = []
+    for ul, rl in POLISH_SIZES:
+        unit = rng.integers(0, 4, ul).astype(np.int8)
+        for scheme in SCHEMES:
+            jobs.append((periodic_rep(rng, unit, rl), unit, scheme))
+    got = np.zeros((len(jobs), 500, 9), np.int32)
+    for u_span in sorted({_u_span(len(u)) for _, u, _ in jobs}):
+        idx = [q for q, (_, u, _) in enumerate(jobs)
+               if _u_span(len(u)) == u_span]
+        got[idx] = run([jobs[q] for q in idx], u_span)[0]
+    orgs = [np.concatenate([[0], rep]).astype(np.int32)
+            for rep, _, _ in jobs]
+    units = np.zeros((len(jobs), 500), np.int32)
+    for q, (_, unit, _) in enumerate(jobs):
+        units[q, : len(unit)] = unit
+    t0 = time.perf_counter()
+    _, cons, miss = native.wrap_dp_batch(
+        orgs, [0] * len(jobs), [len(rep) - 1 for rep, _, _ in jobs], units,
+        [len(u) for _, u, _ in jobs], [s for _, _, s in jobs],
+        [1] * len(jobs))
+    want = np.concatenate([cons[: len(jobs)], miss[: len(jobs)]], axis=2)
+    diff = np.abs(got.astype(np.int64) - want).reshape(len(jobs), -1)
+    bad = int((diff.max(axis=1) > 0).sum())
+    worst = max(worst, int(diff.max()))
+    info(f"consensus kernel vs native host engine: {len(jobs)} jobs "
+         f"(unit, rep_len) in {POLISH_SIZES} x 3 schemes, {bad} mismatching "
+         f"(native {time.perf_counter() - t0:.1f} s)")
+    check(bad == 0, "consensus kernel disagrees with the native host engine")
+    return worst
+
+
+def timer_snapshot():
+    from mtr_tpu.utils.timers import TIMERS
+
+    return dict(TIMERS.t)
+
+
+def timer_delta(before):
+    from mtr_tpu.utils.timers import TIMERS
+
+    return {k: v - before.get(k, 0.0) for k, v in TIMERS.t.items()
+            if v - before.get(k, 0.0) > 0}
+
+
 def main_path(tmp):
     """The port's hybrid on the bench set vs mtr_tpu's host backend."""
     import io
@@ -236,7 +352,7 @@ def main_path(tmp):
     from mtr_tpu_torch.pipeline import make_batcher, run_file
 
     fasta = os.path.join(tmp, "bench_200x200.fasta")
-    n_reads = 20
+    n_reads = BENCH_READS
     t0 = time.perf_counter()
     write_fasta(fasta, fasta[:-6] + ".units", 200, 200, 9.7, 2.9, 7.5,
                 40000, 40000, n_reads, seed=20200)
@@ -282,9 +398,72 @@ def main_path(tmp):
     with open(golden + ".out") as f:
         check(out.getvalue() == f.read(),
               "port hybrid output differs from the 100x10 golden")
+    with open(golden + ".fasta") as f:
+        n_golden = sum(line.startswith(">") for line in f)
     info(f"100x10 golden, port hybrid: identical, {dt:.3f} s, "
-         f"{100 / dt:.1f} reads/s, device cells {batcher.device.cells}")
+         f"{n_golden / dt:.1f} reads/s ({n_golden} reads), device cells "
+         f"{batcher.device.cells}")
+    return fasta, host_out.getvalue(), n_reads / dt_port, n_reads / dt_host
+
+
+def device_path(fasta, host_out, hybrid_rate, host_rate):
+    """run_file under backend "device" (walks on the host) on the bench
+    set vs mtr_tpu's host output; returns the launch counts of both
+    kernels in this run."""
+    import io
+
+    from mtr_tpu.config import MTRConfig
+    from mtr_tpu_torch.ops import directional_index as di
+    from mtr_tpu_torch.ops import wrap_dp_consensus as cons_op
+    from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
+    from mtr_tpu_torch.pipeline import make_batcher, run_file
+
+    cfg = MTRConfig(backend="device", use_device_walks=False)
+    batcher = make_batcher(cfg)
+    before = timer_snapshot()
+    counts_op.LAUNCHES = cons_op.LAUNCHES = di.CALLS = 0
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    run_file(fasta, cfg, out, batcher=batcher)
+    dt = time.perf_counter() - t0
+    launches = {"counts": counts_op.LAUNCHES, "consensus": cons_op.LAUNCHES}
+    di_calls = di.CALLS
+    spent = timer_delta(before)
+    info(f"bench set, port device: {dt:.3f} s, {BENCH_READS / dt:.3f} reads/s "
+         f"(port hybrid {hybrid_rate:.3f}, mtr_tpu host {host_rate:.3f} "
+         f"reads/s)")
+    info(f"bench set, port device: {launches['counts']} counts launches, "
+         f"{launches['consensus']} consensus launches, {di_calls} device-DI "
+         f"passes")
+    info(f"bench set, port device: counts cells {batcher.cells}, "
+         f"consensus cells {batcher.cons_cells}")
+    info(f"bench set, port device: DI seconds {spent.get('di_device', 0.0):.3f}"
+         f" (ranges stage {spent.get('range', 0.0):.3f})")
+    info("bench set, port device, stage seconds (threads overlap): "
+         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spent.items())))
+    check(out.getvalue() == host_out,
+          "port device output differs from mtr_tpu host output")
+    check(launches["counts"] > 0, "the device path launched no counts kernel")
+    check(launches["consensus"] > 0,
+          "the device path launched no consensus kernel")
+    check(di_calls > 0, "the device path ran no device-DI pass")
     return launches
+
+
+def elapsed_ms(fn, n):
+    """CUDA-event time of one call of fn, over n calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def time_kernel():
@@ -306,18 +485,6 @@ def time_kernel():
         flat = np.lib.stride_tricks.sliding_window_view(rep, rl)[:b]
         jobs = [(flat[q], unit, (1, 1, 3)) for q in range(b)]
         return [torch.from_numpy(a).cuda() for a in make_batch(jobs, u_span)]
-
-    def elapsed_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
 
     res = {}
     for b, ul, rl, u_span, n in ((2048, 100, 4096, 128, 5),
@@ -342,6 +509,74 @@ def time_kernel():
     return ms, plain_ms
 
 
+def time_consensus():
+    """CUDA-event times of the consensus kernels at unit 200 (the bench
+    set's polish units) and of one device-DI pass."""
+    import numpy as np
+    import torch
+
+    from mtr_tpu import native
+    from mtr_tpu_torch.ops import wrap_dp_consensus as cop
+    from mtr_tpu_torch.ops.directional_index import make_di_compute
+    from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
+
+    rng = np.random.default_rng(931)
+
+    def inputs(b, rl):
+        unit = rng.integers(0, 4, 200).astype(np.int8)
+        rep = periodic_rep(rng, unit, rl + b)
+        flat = np.lib.stride_tricks.sliding_window_view(rep, rl)[:b]
+        jobs = [(flat[q], unit, (5, 1, 1)) for q in range(b)]
+        return [torch.from_numpy(a).cuda() for a in make_batch(jobs, 256)]
+
+    def full(args):
+        return lambda: cop.wrap_dp_consensus(*args, 256, 6)
+
+    b, rl = 512, 4096
+    args = inputs(b, rl)
+    ms = elapsed_ms(full(args), 3)
+    fill_ms = elapsed_ms(lambda: cop.fill(*args, 256), 3)
+    gcups = b * 200 * rl / (ms * 1e-3) / 1e9
+    info(f"consensus kernel, unit 200 x rep_len {rl} x {b} jobs (u_span "
+         f"256, scheme 5,1,1): {ms:.3f} ms/launch (fill {fill_ms:.3f} ms, "
+         f"traceback share {1 - fill_ms / ms:.3f}), {gcups:.2f} GCUPS")
+
+    rl = 1024
+    args = inputs(b, rl)
+    small_ms = elapsed_ms(full(args), 3)
+    plain_ms = elapsed_ms(lambda: consensus_resident_plain(*args, 6), 1)
+    info(f"consensus plain version on the card, unit 200 x rep_len {rl} x "
+         f"{b} jobs: {plain_ms:.1f} ms/call, kernel {small_ms:.3f} ms "
+         f"({plain_ms / small_ms:.0f}x)")
+
+    # one Manhattan DI pass at the 131,072 position bucket, k = 5, w = 640
+    from mtr_tpu.utils.encoding import rolling_kmer_codes
+
+    L, rsl, w, k = 100000, 10000, 640, 5
+    di_len = L + 2 * rsl
+    buf = np.zeros(di_len + 16, np.int32)
+    buf[: di_len - k + 1] = rolling_kmer_codes(
+        rng.integers(0, 4, di_len).astype(np.int32), k)
+    di_compute = make_di_compute("cuda", True)
+    di_compute(buf, di_len, w, k, rsl)
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dev_di = di_compute(buf, di_len, w, k, rsl)
+    di_ms = (time.perf_counter() - t0) / n * 1e3
+    n_i = di_len - w - rsl - k + 1
+    t0 = time.perf_counter()
+    host_d = native.sliding_l1(buf, w, n_i + w)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    want = (host_d[:n_i] - host_d[w : w + n_i]) / float(2 * w)
+    check(np.array_equal(dev_di[w : w + n_i], want),
+          "device DI disagrees with the native sliding L1")
+    info(f"device DI pass (Manhattan, 131,072 bucket, k {k}, w {w}): "
+         f"{di_ms:.3f} ms/call incl. copies (host clock); native host "
+         f"sliding L1 {host_ms:.3f} ms")
+    return small_ms, plain_ms
+
+
 def main() -> int:
     sys.meta_path.insert(0, _NoJax())
     sys.path.insert(0, HERE)
@@ -355,11 +590,13 @@ def main() -> int:
     try:
         preflight()
         worst = kernel_vs_references()
+        cons_worst = consensus_vs_references()
         build_dir = os.path.join(HERE, "build")
         os.makedirs(build_dir, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-            launches = main_path(tmp)
+            launches = device_path(*main_path(tmp))
         ms, plain_ms = time_kernel()
+        cons_ms, cons_plain_ms = time_consensus()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -370,10 +607,19 @@ def main() -> int:
         "route": "cuda",
         "source": "mtr_tpu_torch/csrc/wrap_dp_counts.cu",
         "replaces": REPLACES,
-        "launches": launches,
+        "launches": launches["counts"],
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "wrap_dp_consensus",
+        "route": "cuda",
+        "source": "mtr_tpu_torch/csrc/wrap_dp_consensus.cu",
+        "replaces": CONS_REPLACES,
+        "launches": launches["consensus"],
+        "max_abs_err": cons_worst,
+        "ms": cons_ms,
+        "plain_ms": cons_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,7 +5,11 @@ mtr_tpu/cli.py, main.c:40-123).
 
 --backend: oracle (bit-exact NumPy path), host (native C++ DP engine),
 hybrid (host engine + torch DP kernels on the CUDA card), auto (hybrid
-where a card is present, else host).  device is not yet ported.
+where a card is present, else host).  device builds mtr_tpu's default
+device configuration, whose DBG walks run on the device; those walks are
+not ported yet, so it exits 1.  run_file / find_repeats with
+MTRConfig(backend="device", use_device_walks=False) run the rest of the
+device backend (every DP job and long-read DI on the card).
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["oracle", "device", "host", "hybrid", "auto"], default="auto",
                    help="oracle = bit-exact NumPy path; host = native C++ DP engine; "
                         "hybrid = host engine + CUDA DP kernels; auto = hybrid when a CUDA "
-                        "card is present; device = not yet ported.")
+                        "card is present; device = every DP job, DI and the DBG walks on "
+                        "the card (the walks are not yet ported: exits 1).")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="resume file: skips reads already emitted by a previous run.")
     p.add_argument("--no-strict", action="store_false", dest="strict",

@@ -42,9 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wrap_dp_rows.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using mtr::kFull;
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -120,30 +122,11 @@ wrap_dp_counts_kernel(const int8_t* __restrict__ flat,
     const int diag = j0 ? s_val[cur][ulm1] : s_val[cur][j - 1];
     const int dmp = diag - mp;
     const int m = mi ? diag + mg : max(0, max(dmp, prev - ip));
-    int v = m + ipj;
-    bool seg = mi || j0;  // a segment start at or left of j, in this warp
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int nv = __shfl_up_sync(kFull, v, d);
-      const int nf = __shfl_up_sync(kFull, (int)seg, d);
-      if (lane >= d && !seg) {
-        v = max(v, nv);
-        seg = nf != 0;
-      }
-    }
-    const unsigned fl = __ballot_sync(kFull, mi || j0);
-    if (lane == 31) {
-      s_wv[w] = v;
-      s_wf[w] = fl != 0u;
-    }
+    bool seg = mi || j0;
+    int v = mtr::seg_max_scan_warp(m + ipj, seg, lane, w, s_wv, s_wf);
     __syncthreads();
     // ---- B: close the scan across warps, publish the row ----
-    if (!seg) {
-      for (int k = w - 1; k >= 0; --k) {
-        v = max(v, s_wv[k]);
-        if (s_wf[k]) break;
-      }
-    }
+    v = mtr::seg_max_scan_close(v, seg, w, s_wv, s_wf);
     int row = mi ? m : v - ipj;
     if (!sub_ok) row = 0;
     s_val[nxt][j] = row;
@@ -184,17 +167,7 @@ wrap_dp_counts_kernel(const int8_t* __restrict__ flat,
 
   // ---- row-major-first argmax: max value, smallest row, smallest lane ----
   int kv = bv, ki = bi, kj = j;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_down_sync(kFull, kv, off);
-    const int oi = __shfl_down_sync(kFull, ki, off);
-    const int oj = __shfl_down_sync(kFull, kj, off);
-    if (ov > kv || (ov == kv && (oi < ki || (oi == ki && oj < kj)))) {
-      kv = ov;
-      ki = oi;
-      kj = oj;
-    }
-  }
+  mtr::argmax_warp(kv, ki, kj);
   // s_base is free after the last row's barrier
   __syncthreads();
   s_base[0][j] = bm;
@@ -209,7 +182,7 @@ wrap_dp_counts_kernel(const int8_t* __restrict__ flat,
   if (j == 0) {
     for (int k = 1; k < NW; ++k) {
       const int ov = s_rv[k], oi = s_ri[k], oj = s_rj[k];
-      if (ov > kv || (ov == kv && (oi < ki || (oi == ki && oj < kj)))) {
+      if (mtr::argmax_before(ov, oi, oj, kv, ki, kj)) {
         kv = ov;
         ki = oi;
         kj = oj;

@@ -3,8 +3,8 @@ library, bound with ctypes).
 
 The library is built at first use from the sources under
 mtr_tpu_torch/csrc/ into build/mtr_tpu_torch/<hash>/ at the repository
-root, keyed by a hash of the sources and flags, so an edited source never
-loads a stale binary.  A failed build raises with nvcc's stderr: there is
+root, keyed by a hash of the sources, headers and flags, so an edited
+source never loads a stale binary.  A failed build raises with nvcc's stderr: there is
 no fallback to the plain version.
 """
 
@@ -19,10 +19,13 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
-SOURCES = (os.path.join(_PKG, "csrc", "wrap_dp_counts.cu"),)
+_CSRC = os.path.join(_PKG, "csrc")
+SOURCES = tuple(os.path.join(_CSRC, name) for name in (
+    "wrap_dp_counts.cu", "wrap_dp_consensus.cu"))
+HEADERS = (os.path.join(_CSRC, "wrap_dp_rows.cuh"),)
 BUILD_DIR = os.path.join(_ROOT, "build", "mtr_tpu_torch")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -44,14 +47,28 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's
+    stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for p, err, cmd in zip(procs, errs, cmds):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {p.returncode}) on {cmd[-1]}:\n{err}")
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use: one nvcc per source,
+    all started together, then one link."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
@@ -60,19 +77,24 @@ def library() -> ctypes.CDLL:
         so = os.path.join(out_dir, "libmtr_tpu_torch.so")
         if not os.path.exists(so):
             os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            r = subprocess.run(
-                [_nvcc(), *FLAGS, "-o", tmp, *SOURCES],
-                capture_output=True, text=True,
-            )
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {r.returncode}):\n{r.stderr}")
+            nvcc = _nvcc()
+            tag = os.getpid()
+            objs = [os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+                    for src in SOURCES]
+            _run_all([[nvcc, *FLAGS, "-c", "-o", obj, src]
+                      for obj, src in zip(objs, SOURCES)])
+            tmp = f"{so}.{tag}.tmp"
+            _run_all([[nvcc, *FLAGS, "-shared", "-o", tmp, *objs]])
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
-        vp = ctypes.c_void_p
-        lib.mtr_wrap_dp_counts.argtypes = [
-            ctypes.c_int, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp]
-        lib.mtr_wrap_dp_counts.restype = ctypes.c_int
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.mtr_wrap_dp_counts.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, vp]
+        lib.mtr_wrap_dp_consensus_fill.argtypes = [
+            ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+        lib.mtr_wrap_dp_consensus_traceback.argtypes = [
+            ci, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp]
+        for fn in (lib.mtr_wrap_dp_counts, lib.mtr_wrap_dp_consensus_fill,
+                   lib.mtr_wrap_dp_consensus_traceback):
+            fn.restype = ci
         _LIB = lib
         return lib

@@ -1,11 +1,13 @@
 """PyTorch counterpart of mtr_tpu/pipeline.py: the device DP batcher, the
 hybrid engine and the per-file main loop.
 
-Every host stage (DI and candidate ranges, DBG walks, polish, chaining,
-the native C++ DP engine) is reused from mtr_tpu as it stands; none of
-them imports JAX.  What this module owns is the device leg: counts-mode
-wrap-around DP jobs on a CUDA card through
-mtr_tpu_torch/ops/wrap_dp_counts.py, and the hybrid split that feeds it.
+Every host stage (DI pairing and candidate ranges, DBG walks, polish,
+chaining, the native C++ DP engine) is reused from mtr_tpu as it stands;
+none of them imports JAX.  What this module owns is the device leg: the
+wrap-around DP jobs on a CUDA card (counts mode through
+ops/wrap_dp_counts.py, consensus mode through ops/wrap_dp_consensus.py),
+the hybrid split that feeds it, and, under backend "device", the DI
+sliding windows of long reads (ops/directional_index.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from mtr_tpu.io.fasta import iter_fasta
 from mtr_tpu.oracle.arena import Arena
 from mtr_tpu.oracle.directional_index import fill_directional_index_with_end
 from mtr_tpu.pipeline import (
+    MOVES_BYTES_CAP,
+    TB_FACTOR,
     DPJob,
     HostDPBatcher,
     ReadState,
@@ -35,6 +39,8 @@ from mtr_tpu.pipeline import (
     waves_policy,
 )
 from mtr_tpu.utils.timers import TIMERS
+from mtr_tpu_torch.ops.directional_index import make_di_compute
+from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
 from mtr_tpu_torch.ops.wrap_dp_counts import (
     R_MAX,
     U_SPANS,
@@ -44,8 +50,8 @@ from mtr_tpu_torch.ops.wrap_dp_counts import (
 
 
 class BackendUnavailable(RuntimeError):
-    """The requested backend cannot run here (no CUDA card, or not yet
-    ported)."""
+    """The requested backend cannot run here (no CUDA card, or a part not
+    yet ported)."""
 
 
 def _u_span(unit_len: int) -> int:
@@ -56,13 +62,35 @@ def _u_span(unit_len: int) -> int:
                      f"{U_SPANS[-1]}")
 
 
+def _factor(schemes) -> int:
+    """Traceback step factor of a consensus launch (mtr_tpu/pipeline.py:
+    706-711): 1 + ceil(mg/ip) bounds a path's steps per rep row,
+    quantized to {2, TB_FACTOR}."""
+    factor = 1 + max(-(-mg // ip) for mg, _, ip in schemes)
+    return 2 if factor <= 2 else TB_FACTOR
+
+
+def _cap_parts(rep_lens: list[int], u_span: int) -> list[int]:
+    """Cut a longest-first consensus group so that each launch's move
+    scratch (rep_len x u_span bytes per job) stays within
+    MOVES_BYTES_CAP; returns the cut points."""
+    cuts, acc = [], 0
+    for q, rl in enumerate(rep_lens):
+        if acc and acc + rl * u_span > MOVES_BYTES_CAP:
+            cuts.append(q)
+            acc = 0
+        acc += rl * u_span
+    return cuts + [len(rep_lens)]
+
+
 class TorchDPBatcher:
-    """Counts-mode DP jobs on one torch device (counterpart of the counts
-    path of mtr_tpu.pipeline.WrapDPBatcher).  The batch's reads are
-    uploaded once (begin_batch); each run groups its jobs by unit span,
-    launches the kernel once per span, and copies all results back to the
-    host in one transfer.  On a CPU device the op runs its plain version
-    (tests)."""
+    """DP jobs on one torch device (counterpart of
+    mtr_tpu.pipeline.WrapDPBatcher).  The batch's reads are uploaded once
+    (begin_batch); each run groups its jobs by mode and unit span, longest
+    first, launches the counts kernel once per span and the consensus
+    kernels once per span (cut to MOVES_BYTES_CAP of move scratch), and
+    copies each mode's results back to the host in one transfer.  On a CPU
+    device the ops run their plain versions (tests)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -72,7 +100,8 @@ class TorchDPBatcher:
         self._host: list = [None, None]
         self._flat: torch.Tensor | None = None
         self._offsets: dict = {}  # id(org) -> offset into flat
-        self.cells = 0            # DP cells computed here (counts jobs)
+        self.cells = 0            # DP cells computed here, counts jobs
+        self.cons_cells = 0       # ... and consensus jobs
 
     def begin_batch(self, orgs: list[np.ndarray]) -> None:
         total = sum(len(o) for o in orgs)
@@ -105,28 +134,40 @@ class TorchDPBatcher:
     def _run(self, jobs: list[DPJob]) -> None:
         if not jobs:
             return
-        groups: dict[int, list[int]] = defaultdict(list)
+        groups: dict = {"counts": defaultdict(list),
+                        "consensus": defaultdict(list)}
         for idx, job in enumerate(jobs):
-            if job.mode != "counts":
-                raise NotImplementedError(
-                    "consensus-mode DP jobs have no torch device path yet; "
-                    "they stay on the host engine")
-            groups[_u_span(len(job.unit))].append(idx)
-        parts, outs = [], []
-        for u_span, idxs in sorted(groups.items()):
-            # longest-first: the longest blocks start first
-            idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
-            parts.append(idxs)
-            outs.append(self._dispatch(jobs, idxs, u_span))
+            groups[job.mode][_u_span(len(job.unit))].append(idx)
+        parts: dict = {"counts": [], "consensus": []}
+        outs: dict = {"counts": [], "consensus": []}
+        for mode, by_span in groups.items():
+            for u_span, idxs in sorted(by_span.items()):
+                # longest-first: the longest blocks start first
+                idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
+                cuts = ([len(idxs)] if mode == "counts" else _cap_parts(
+                    [jobs[i].qe - jobs[i].qs + 1 for i in idxs], u_span))
+                lo = 0
+                for hi in cuts:
+                    parts[mode].append(idxs[lo:hi])
+                    outs[mode].append(
+                        self._dispatch(jobs, idxs[lo:hi], u_span, mode))
+                    lo = hi
         with TIMERS.section("dp_wait"):
-            # one device->host copy per run
-            res = torch.cat(outs).cpu().numpy()
-        off = 0
-        for idxs in parts:
-            self._collect_chunk(jobs, idxs, res[off : off + len(idxs)])
-            off += len(idxs)
+            # one device->host copy per mode
+            res = {mode: torch.cat(o).cpu().numpy()
+                   for mode, o in outs.items() if o}
+        for mode, mode_parts in parts.items():
+            off = 0
+            for part in mode_parts:
+                chunk = res[mode][off : off + len(part)]
+                if mode == "counts":
+                    self._collect_counts(jobs, part, chunk)
+                else:
+                    for idx, fused in zip(part, chunk):
+                        jobs[idx].result = (fused[:, :5], fused[:, 5:])
+                off += len(part)
 
-    def _dispatch(self, jobs, part, u_span) -> torch.Tensor:
+    def _dispatch(self, jobs, part, u_span, mode) -> torch.Tensor:
         n = len(part)
         qs = np.fromiter((jobs[i].qs for i in part), np.int64, n)
         qe = np.fromiter((jobs[i].qe for i in part), np.int64, n)
@@ -148,20 +189,29 @@ class TorchDPBatcher:
         self._check_bounds(scal, starts, u_span)
         with TIMERS.section("dp_dispatch"):
             dev = self.device
-            out = wrap_dp_counts(
+            args = (
                 self._flat,
                 torch.from_numpy(starts.astype(np.int32)).to(dev),
                 torch.from_numpy(scal).to(dev),
                 torch.from_numpy(units).to(dev),
                 u_span,
             )
+            if mode == "counts":
+                out = wrap_dp_counts(*args)
+            else:
+                out = wrap_dp_consensus(
+                    *args, _factor(jobs[i].scheme for i in part))[0]
         TIMERS.count("dp_jobs", n)
         TIMERS.count("dp_chunks")
-        self.cells += int((rep_len * scal[:, 1]).sum())
+        cells = int((rep_len * scal[:, 1]).sum())
+        if mode == "counts":
+            self.cells += cells
+        else:
+            self.cons_cells += cells
         return out
 
     def _check_bounds(self, scal, starts, u_span) -> None:
-        """The kernel's own bounds (one block per job, unpacked int32)."""
+        """The kernels' own bounds (one block per job, unpacked int32)."""
         rep_len = scal[:, 0].astype(np.int64)
         mg, ip = scal[:, 2].astype(np.int64), scal[:, 4].astype(np.int64)
         if (rep_len > R_MAX).any():
@@ -175,7 +225,7 @@ class TorchDPBatcher:
         if (starts < 0).any() or (starts + rep_len > len(self._flat)).any():
             raise ValueError("rep segment outside the resident reads")
 
-    def _collect_chunk(self, jobs, part, fused) -> None:
+    def _collect_counts(self, jobs, part, fused) -> None:
         if not fused[:, 6].all():
             raise RuntimeError("counts kernel left a job unfinished")
         for idx, row in zip(part, fused.tolist()):
@@ -184,12 +234,13 @@ class TorchDPBatcher:
 
 
 class TorchHybridDPBatcher:
-    """Big counts-mode DP jobs go to the torch device, small jobs and
-    every consensus job to the native host engine, overlapped: the
-    device leg runs in a thread while the host threads chew the small
-    jobs.  Every engine is bit-exact, so the split is pure scheduling
-    (counterpart of mtr_tpu.pipeline.HybridDPBatcher, whose thresholds
-    and env names it keeps).
+    """Big counts-mode DP jobs go to the torch device, small jobs to the
+    native host engine, overlapped: the device leg runs in a thread while
+    the host threads chew the small jobs.  Consensus jobs ride the device
+    only above MTR_TPU_HYBRID_CONS_CELLS (default: never).  Every engine
+    is bit-exact, so the split is pure scheduling (counterpart of
+    mtr_tpu.pipeline.HybridDPBatcher, whose thresholds and env names it
+    keeps).
 
     Deliberately not carried over: the tiny-v1-group demotion (a padded
     TPU v1 chunk cost b_pad x max_rep; here every job is its own block)
@@ -292,22 +343,26 @@ class TorchHybridDPBatcher:
                 job.result = uniq_jobs[ui].result
 
 
+def _need_cuda(backend: str) -> None:
+    if not torch.cuda.is_available():
+        raise BackendUnavailable(
+            f"--backend {backend} needs a CUDA device; "
+            "torch.cuda.is_available() is false")
+
+
 def make_batcher(cfg: MTRConfig):
     """Pick the DP engine: `host` is the native engine, `hybrid` the
-    torch hybrid on the CUDA card, `auto` the hybrid where a card is
-    present and the host engine elsewhere."""
+    torch hybrid on the CUDA card, `device` every DP job on the card,
+    `auto` the hybrid where a card is present and the host engine
+    elsewhere."""
     if cfg.backend == "host":
         return HostDPBatcher()
     if cfg.backend == "hybrid":
-        if not torch.cuda.is_available():
-            raise BackendUnavailable(
-                "--backend hybrid needs a CUDA device; "
-                "torch.cuda.is_available() is false")
+        _need_cuda("hybrid")
         return TorchHybridDPBatcher(torch.device("cuda"))
     if cfg.backend == "device":
-        raise BackendUnavailable(
-            "--backend device is not yet ported to mtr_tpu_torch "
-            "(see ROADMAP.md)")
+        _need_cuda("device")
+        return TorchDPBatcher(torch.device("cuda"))
     if cfg.backend == "auto":
         if torch.cuda.is_available():
             return TorchHybridDPBatcher(torch.device("cuda"))
@@ -328,10 +383,24 @@ def run_file(
 ):
     """The per-file main loop of mtr_tpu.pipeline.run_file over this module's
     batcher (make_batcher(cfg) unless one is given); arguments as there.
-    DI always runs on the host."""
+
+    Under backend "device", DI of reads of cfg.device_di_threshold bases
+    or more runs on the batcher's device (CUDA unless the batcher is a
+    TorchDPBatcher on another device), as mtr_tpu does; every other
+    backend keeps DI on the host.  The device DBG walks are not ported:
+    backend "device" needs cfg.use_device_walks False, which runs the
+    walks on the native engine exactly as mtr_tpu's device backend
+    does with that setting."""
     import gc
     import sys
 
+    if cfg.backend == "device" and cfg.use_device_walks:
+        raise BackendUnavailable(
+            "--backend device runs the DBG walks on the device, which "
+            "mtr_tpu_torch has not ported yet; run_file / find_repeats "
+            "with MTRConfig(backend='device', use_device_walks=False) run "
+            "every DP job and long-read DI on the card and the walks on "
+            "the host (see ROADMAP.md)")
     if out is None:
         out = sys.stdout
     # millions of small acyclic records per batch: widen the gc
@@ -343,11 +412,17 @@ def run_file(
     arena = Arena(cfg.max_input_length)
     if batcher is None:
         batcher = make_batcher(cfg)
+    di_compute = None
+    if cfg.backend == "device":
+        di_compute = make_di_compute(
+            batcher.device if isinstance(batcher, TorchDPBatcher)
+            else torch.device("cuda"), cfg.manhattan_distance)
     # mtr_tpu's walk_batch / process_batch get backend="host": there,
-    # `backend` gates only the JAX device walks ("device") and the JAX walk
-    # pre-filter ("hybrid", whose probe imports jax for every batch of
-    # 32768+ queries).  Both are off under "host", so the output cannot
-    # change, and no stage of the port reaches JAX.
+    # `backend` gates only the JAX device walks ("device" with
+    # use_device_walks, refused above) and the JAX walk pre-filter
+    # ("hybrid", whose probe imports jax for every batch of 32768+
+    # queries).  Both are off under "host", so the output cannot change,
+    # and no stage of the port reaches JAX.
     host_cfg = dataclasses.replace(cfg, backend="host")
     batch: list[ReadState] = []
     done_reads = 0
@@ -469,9 +544,12 @@ def run_file(
             org_eff = arena.org_input[: L + 1].copy()
             rsl = min_rsl if L < min_rsl * 10 else L // 10
             with TIMERS.section("range"):
+                # the reader thread's DI shares the card with stage B's DP
                 di, di_end, di_w = fill_directional_index_with_end(
                     arena, L, rsl, manhattan=cfg.manhattan_distance,
-                    di_compute=None, use_native=cfg.use_native,
+                    di_compute=(di_compute
+                                if L >= cfg.device_di_threshold else None),
+                    use_native=cfg.use_native,
                 )
             batch.append(ReadState(read, org_eff, di, di_end, di_w, ridx))
             batch_bases += L

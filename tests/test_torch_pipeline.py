@@ -1,6 +1,7 @@
 """The port's pipeline on the CPU: its run_file reproduces the in-repo
-goldens byte for byte, on the host engine and on the torch hybrid with
-its device leg engaged (plain PyTorch op on CPU tensors); backend
+goldens byte for byte, on the host engine, on the torch hybrid with its
+device leg engaged, and on the device backend (every DP job and DI on
+the torch device), with the plain PyTorch ops on CPU tensors; backend
 selection raises rather than falling back; the package runs with JAX
 blocked."""
 
@@ -16,7 +17,7 @@ import torch
 from mtr_tpu.config import MTRConfig
 from mtr_tpu.pipeline import DPJob, HostDPBatcher
 from mtr_tpu_torch import pipeline as tp
-from mtr_tpu_torch.ops import wrap_dp_resident
+from mtr_tpu_torch.ops import directional_index, wrap_dp_resident
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -93,8 +94,12 @@ def test_host_stages_get_host_backend(monkeypatch):
 def test_make_batcher_backends():
     assert isinstance(tp.make_batcher(MTRConfig(backend="host")),
                       HostDPBatcher)
-    with pytest.raises(tp.BackendUnavailable, match="not yet ported"):
-        tp.make_batcher(MTRConfig(backend="device"))
+    if torch.cuda.is_available():
+        assert isinstance(tp.make_batcher(MTRConfig(backend="device")),
+                          tp.TorchDPBatcher)
+    else:
+        with pytest.raises(tp.BackendUnavailable, match="CUDA"):
+            tp.make_batcher(MTRConfig(backend="device"))
     with pytest.raises(ValueError):
         tp.make_batcher(MTRConfig(backend="tpu"))
 
@@ -105,8 +110,10 @@ def test_cli_host_and_refusals(capsys):
     fasta = os.path.join(GOLDEN, "multitr_gen_2_5_10_20.fasta")
     assert cli.main(["--backend", "host", fasta]) == 0
     assert capsys.readouterr().out == _golden("multitr_gen_2_5_10_20")
+    # the CLI's device backend asks for the device walks, not yet ported
     assert cli.main(["--backend", "device", fasta]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "walks" in err and "use_device_walks=False" in err
 
 
 def test_cuda_requests_raise_without_cuda():
@@ -145,11 +152,97 @@ def test_device_batcher_matches_host_engine():
 
 
 def test_device_batcher_refuses_consensus_jobs():
-    org = np.zeros(100, np.int32)
+    """Consensus jobs are no longer refused: they run on the device path
+    (plain version here) and equal the host engine's, column for column,
+    in a mixed run with counts jobs."""
+    rng = np.random.default_rng(11)
+    orgs = [rng.integers(0, 4, 1500).astype(np.int32) for _ in range(2)]
+    jobs = []
+    for org in orgs:
+        for ul, scheme in ((4, (5, 1, 1)), (60, (1, 1, 3)), (140, (5, 1, 1)),
+                           (300, (1, 1, 3))):
+            qs = int(rng.integers(0, 400))
+            unit = org[qs + 1 : qs + 1 + ul]
+            qe = qs + int(rng.integers(ul, 900))
+            jobs.append(DPJob(org, qs, qe, unit, scheme, "consensus"))
+            jobs.append(DPJob(org, qs, qe, unit, scheme))
     dev = tp.TorchDPBatcher(torch.device("cpu"))
-    dev.begin_batch([org])
-    with pytest.raises(NotImplementedError):
-        dev.run([_job(org, 0, 50, [0, 1], mode="consensus")])
+    dev.begin_batch(orgs)
+    dev.run(jobs)
+    got = [j.result for j in jobs]
+    HostDPBatcher().run(jobs)
+    for job, res in zip(jobs, got):
+        if job.mode == "counts":
+            assert res == job.result
+        else:
+            np.testing.assert_array_equal(res[0], job.result[0])
+            np.testing.assert_array_equal(res[1], job.result[1])
+    cons = [j for j in jobs if j.mode == "consensus"]
+    assert dev.cons_cells == sum((j.qe - j.qs + 1) * len(j.unit)
+                                 for j in cons)
+
+
+def _golden_lines(name, read_ids):
+    return "".join(line for line in _golden(name).splitlines(True)
+                   if line.split("\t", 1)[0] in read_ids)
+
+
+def test_device_run_file_matches_golden(monkeypatch):
+    """backend="device" with the walks on the host: every DP job (counts
+    and consensus) and the DI of every read (threshold lowered to 1000
+    bases) go through the port's device ops, here their plain versions.
+    One of the 20 reads keeps the test inside its time budget (each read
+    costs 12-16 s on one CPU thread); the arena still replays every
+    read."""
+    cons = []
+    plain = wrap_dp_resident.consensus_resident_plain
+
+    def spy(flat, starts, scal, unit, factor):
+        cons.append(scal.shape[0])
+        return plain(flat, starts, scal, unit, factor)
+
+    monkeypatch.setattr(tp, "wrap_dp_consensus",
+                        lambda *a: spy(*a[:4], a[5]))
+    picks = {1}
+    di_before = directional_index.CALLS
+    batcher = tp.TorchDPBatcher(torch.device("cpu"))
+    got = _run("multi20_100x10",
+               MTRConfig(backend="device", use_device_walks=False,
+                         device_di_threshold=1000),
+               batcher=batcher, read_filter=picks.__contains__)
+    assert got == _golden_lines("multi20_100x10", {str(r) for r in picks})
+    assert cons and batcher.cons_cells > 0 and batcher.cells > 0
+    assert directional_index.CALLS > di_before
+
+
+def test_device_backend_refuses_device_walks():
+    """Checked before the batcher is made: the same refusal with or
+    without a card, and no quiet host walks."""
+    with pytest.raises(tp.BackendUnavailable, match="use_device_walks"):
+        _run("multitr_gen_2_5_10_20", MTRConfig(backend="device"),
+             batcher=tp.TorchDPBatcher(torch.device("cpu")))
+
+
+def test_hybrid_runs_consensus_on_device_leg(monkeypatch):
+    """MTR_TPU_HYBRID_CONS_CELLS=0 sends every consensus job to the
+    device leg, as mtr_tpu's HybridDPBatcher does; counts jobs stay on
+    the host here, so the device leg runs only the consensus op."""
+    monkeypatch.setenv("MTR_TPU_HYBRID_CONS_CELLS", "0")
+    seen = []
+    real = tp.TorchDPBatcher._run
+
+    def spy(self, jobs):
+        seen.extend(j.mode for j in jobs)
+        return real(self, jobs)
+
+    monkeypatch.setattr(tp.TorchDPBatcher, "_run", spy)
+    batcher = tp.TorchHybridDPBatcher(
+        torch.device("cpu"), cell_threshold=1 << 62, min_device_cells=0)
+    got = _run("multi20_100x10", MTRConfig(backend="hybrid"),
+               batcher=batcher)
+    assert got == _golden("multi20_100x10")
+    assert seen and set(seen) == {"consensus"}
+    assert batcher.device.cons_cells > 0
 
 
 def test_hybrid_reraises_device_leg_failure(monkeypatch):
@@ -183,6 +276,35 @@ mtr_tpu_torch.pipeline.run_file(sys.argv[1] + ".fasta",
 assert out.getvalue() == open(sys.argv[1] + ".out").read()
 recs = mtr_tpu_torch.find_repeats("ACGTTT" * 50, MTRConfig(backend="host"))
 assert len(recs) == 1
+# the device path on CPU tensors: every DP job and the DI on torch
+import os, random, tempfile
+import torch
+from mtr_tpu_torch.ops import directional_index
+rnd = random.Random(5)
+flank = lambda n: "".join(rnd.choice("ACGT") for _ in range(n))
+unit = flank(23)
+seq = flank(300) + unit * 6 + unit[:9] + "T" + unit[10:] + unit * 5 + flank(300)
+with tempfile.NamedTemporaryFile("w", suffix=".fasta", delete=False) as f:
+    f.write(">r\n" + seq + "\n")
+outs = []
+for cfg, batcher in (
+        (MTRConfig(backend="device", use_device_walks=False,
+                   device_di_threshold=500),
+         mtr_tpu_torch.pipeline.TorchDPBatcher(torch.device("cpu"))),
+        (MTRConfig(backend="host"), None)):
+    out = io.StringIO()
+    mtr_tpu_torch.pipeline.run_file(f.name, cfg, out, batcher=batcher)
+    outs.append(out.getvalue())
+os.unlink(f.name)
+assert outs[0] == outs[1] and outs[0], outs
+assert directional_index.CALLS > 0
+from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
+fused, best = wrap_dp_consensus(
+    torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], dtype=torch.int8),
+    torch.zeros(1, dtype=torch.int32),
+    torch.tensor([[8, 3, 5, 1, 1, 0, 0, 0]], dtype=torch.int32),
+    torch.tensor([[0, 1, 2] + [-2] * 125], dtype=torch.int8), 128, 6)
+assert int(fused[0, 1:4, :3].trace()) > 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 print("NO_JAX_OK")
 """
