@@ -18,14 +18,34 @@ Phases, in order; any failure exits non-zero before the result line:
      200 copy set (20 reads of ~120 kb), byte-identical to mtr_tpu's host
      backend, with kernel launches and device-leg cells counted; then the
      in-repo 100x10 golden;
-  3b. the device path: run_file with MTRConfig(backend="device",
-     use_device_walks=False) on the same set, byte-identical to mtr_tpu's
-     host backend, with counts and consensus launches and device-DI
-     passes counted;
+  2c. the DBG walk kernel against stage_b_plain on the card, with zero
+     tolerance, on fuzzed jobs (periodic reads with units 2-120, k 2-15
+     with ranges at the read's end, homopolymer / 2-mer tie storms, walks
+     that overflow the 32-tie list, whale ranges of 2,048 to 38,371
+     bases); then dbg_walk_device_batch against native.dbg_walk_batch2 on
+     the first batch of the bench set (~570k queries), every query's
+     result equal (it runs after phase 3, which writes the set);
+  3b. the device path with the walks on the host: run_file with
+     MTRConfig(backend="device", use_device_walks=False) on the same set,
+     byte-identical to mtr_tpu's host backend, with counts and consensus
+     launches and device-DI passes counted;
+  3c. the device path whole: run_file with MTRConfig(backend="device")
+     (mtr_tpu's default: DBG walks on the card) on the bench set and the
+     100x10 golden, byte-identical, with the launches of all three
+     kernels, stage-A passes, speculative jobs and host-route queries
+     counted; then `python -m mtr_tpu_torch.cli --backend device` in a
+     subprocess, same stdout;
+  3d. the hybrid with MTR_TPU_MF_FILTER=1 (the walk pre-filter on the
+     card), byte-identical, with the queries it filtered out;
   4. counts kernel times with CUDA events at the bench's GCUPS shapes,
      and the plain version's time at the first of them;
   4b. consensus kernel times (fill + traceback, and the fill alone) with
-     CUDA events, the plain version's time, and one device-DI pass.
+     CUDA events, the plain version's time, and one device-DI pass;
+  4c. the walk kernel's time with CUDA events on the jobs of one bench
+     chunk, and against stage_b_plain on a subset of them.
+
+Each path of phase 3 sets the kernels' launch counts to 0 before it runs
+and fails if a kernel of that path was not launched.
 
 The next-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  JAX is never imported: a meta-path hook
@@ -59,6 +79,9 @@ CONS_REPLACES = ("mtr_tpu/ops/wrap_dp_pallas.py:52 (with "
 # the bench set's largest polish job, and two long ones
 POLISH_SIZES = ((203, 4167), (100, 10000), (480, 10000))
 BENCH_READS = 20  # the bench set's reads (bench.py:87-91)
+WALK_REPLACES = "mtr_tpu/ops/dbg_device.py:132 (_stage_b)"
+WALK_UNITS = (2, 3, 7, 15, 33, 60, 95, 120)
+WHALE_WIDTHS = (2048, 5000, 12000, 38371)
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -328,6 +351,177 @@ def consensus_vs_references():
     return worst
 
 
+def walk_chunks(orgs, lens, queries):
+    """(v_pad, tables, jobs) per chunk of the queries (read, qs, qe, k),
+    on the card: stage A's tables and the speculative jobs built from
+    them, as dbg_walk_device_batch builds them."""
+    import numpy as np
+    import torch
+
+    from mtr_tpu_torch.ops import dbg_device as dw
+
+    q = np.asarray(queries, np.int64).reshape(-1, 4)
+    ridx, qs, qe, k = q.T
+    V = qe - qs + 1
+    n_code = np.minimum(qe, np.asarray(lens, np.int64)[ridx] - k + 1) - qs
+    lmax = np.minimum(dw.MAX_PERIOD, (qe - qs) // dw.MIN_NUM_FREQ_UNIT)
+    flat, offs = dw.upload_reads(orgs, "cuda")
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    for v_pad, c in dw.bucket_chunks(np.arange(len(q)), V, dw.V_MAX):
+        sv, adj, maxfreq, nodes, n_nodes = dw.stage_a(
+            flat, torch.from_numpy(offs[ridx[c]] + qs[c]).cuda(),
+            put(n_code[c]), put(V[c]), put(k[c]), v_pad)
+        _, _, tq, node0, is_fwd, _ = dw.chunk_jobs(maxfreq, n_nodes, nodes)
+        if len(tq):
+            qi = c[tq]
+            yield v_pad, (sv, adj), [put(a) for a in
+                                     (tq, node0, is_fwd, k[qi], lmax[qi])]
+
+
+def walk_fuzz_set(rng):
+    """Reads and (read, qs, qe, k) queries of phase 2c."""
+    import numpy as np
+
+    orgs, queries = [], []
+
+    def add(seq):
+        orgs.append(np.concatenate([seq, [0]]).astype(np.int32))
+        return len(orgs) - 1
+
+    for ul in WALK_UNITS:  # periodic reads, k 2-15, ranges at the end
+        unit = rng.integers(0, 4, ul).astype(np.int8)
+        r = add(periodic_rep(rng, unit, 3000, err=0.1))
+        for _ in range(6):
+            qs = int(rng.integers(0, 1500))
+            queries.append((r, qs, int(rng.integers(qs + 60, 2999)),
+                            int(rng.integers(2, 16))))
+        queries += [(r, 2999 - 500, 2999 - d, k) for d in (0, 2)
+                    for k in (11, 13, 15)]
+    for unit in ([0], [0, 1], [2, 2, 3]):  # tie storms
+        seq = np.tile(unit, 700)[:700].astype(np.int8)
+        seq[rng.integers(0, 700, 12)] = rng.integers(0, 4, 12)
+        r = add(seq)
+        queries += [(r, 5, 690, k) for k in (2, 3, 5, 7, 12)]
+    # noisy unit-95 walks that dead-end in all-zero tie lists (overflow)
+    unit = rng.integers(0, 4, 95).astype(np.int8)
+    r = add(periodic_rep(rng, unit, 1600, err=0.15))
+    queries += [(r, s, s + 823, k) for s in (100, 700) for k in range(8, 15)]
+    unit = rng.integers(0, 4, 120).astype(np.int8)  # whale ranges
+    r = add(periodic_rep(rng, unit, 40000, err=0.12))
+    queries += [(r, 500, 500 + v - 1, k) for v in WHALE_WIDTHS
+                for k in (5, 9, 13)]
+    return orgs, [len(o) - 1 for o in orgs], queries
+
+
+def canonical_walks(res, n):
+    """Per-query view of a walk result dict (row numbers differ between
+    engines): found_last, periods, each direction's unit / score row cut
+    to its period."""
+    import numpy as np
+
+    out = {key: np.asarray(res[key][:n]) for key in
+           ("found_last", "fwd_period", "bwd_period")}
+    col = np.arange(500)[None, :]
+    for d in ("fwd", "bwd"):
+        row = np.asarray(res[f"{d}_row"][:n])
+        has = row >= 0
+        out[f"{d}_has"] = has
+        keep = has[:, None] & (col < out[f"{d}_period"][:, None])
+        for key in ("units", "scores"):
+            full = np.zeros((n, 500), np.int64)
+            full[has] = res[key][row[has]]
+            out[f"{d}_{key}"] = np.where(keep, full, 0)
+    return out
+
+
+def bench_batch_queries(fasta):
+    """The first batch of the bench set as run_file cuts it (host DI),
+    and its wave-1 walk queries."""
+    from mtr_tpu.config import MTRConfig
+    from mtr_tpu.io.fasta import iter_fasta
+    from mtr_tpu.oracle.arena import Arena
+    from mtr_tpu.oracle.directional_index import (
+        fill_directional_index_with_end,
+    )
+    from mtr_tpu.pipeline import ReadState, _collect_queries
+
+    cfg = MTRConfig(backend="device")
+    arena = Arena(cfg.max_input_length)
+    states, bases = [], 0
+    for ridx, read in enumerate(iter_fasta(fasta, cfg.max_input_length)):
+        arena.load_read(read.codes)
+        L = read.length
+        di, di_end, di_w = fill_directional_index_with_end(
+            arena, L, 100 if L < 1000 else L // 10, manhattan=True)
+        states.append(ReadState(read, arena.org_input[: L + 1].copy(), di,
+                                di_end, di_w, ridx))
+        bases += L
+        if len(states) >= cfg.reads_per_batch or bases >= cfg.bases_per_batch:
+            break
+    orgs = [st.org for st in states]
+    lens = [st.read.length for st in states]
+    return orgs, lens, _collect_queries(states, cfg)
+
+
+def walk_vs_references(fasta):
+    """Phase 2c.  Returns the largest absolute difference and the number
+    of mismatching jobs (both must be 0), and the bench batch (orgs, lens,
+    queries) for phase 4c."""
+    import numpy as np
+    import torch
+
+    from mtr_tpu import native
+    from mtr_tpu_torch.ops import dbg_device as dw
+
+    rng = np.random.default_rng(20242)
+    orgs, lens, queries = walk_fuzz_set(rng)
+    worst = 0
+    tot = {"jobs": 0, "found": 0, "ovf": 0, "bad": 0}
+    t0 = time.perf_counter()
+    for v_pad, (sv, adj), job in walk_chunks(orgs, lens, queries):
+        got = dw.dbg_walk(sv, adj, *job)
+        want = dw.stage_b_plain(sv, adj, *job)
+        torch.cuda.synchronize()
+        bad = torch.zeros(job[0].shape[0], dtype=torch.bool,
+                          device=job[0].device)
+        for g, w in zip(got, want):
+            d = (g.long() - w.long()).abs().reshape(len(bad), -1)
+            bad |= d.amax(1) > 0
+            worst = max(worst, int(d.max()))
+        tot["jobs"] += len(bad)
+        tot["bad"] += int(bad.sum())
+        tot["found"] += int(got[0].sum())
+        tot["ovf"] += int(got[4].sum())
+        info(f"walk kernel vs plain on the card, V bucket {v_pad}: "
+             f"{len(bad)} jobs, {int(bad.sum())} mismatching")
+    info(f"walk kernel vs plain: {tot['jobs']} jobs of {len(queries)} "
+         f"queries, {tot['found']} found, {tot['ovf']} tie overflows, "
+         f"{tot['bad']} mismatching ({time.perf_counter() - t0:.1f} s)")
+    check(tot["bad"] == 0, "walk kernel disagrees with stage_b_plain")
+    check(tot["ovf"] > 0, "the fuzz set set no tie overflow")
+    check(tot["found"] > 0, "the fuzz set found no unit")
+
+    b_orgs, b_lens, (ridx, qs, qe, _, k) = bench_batch_queries(fasta)
+    n = len(ridx)
+    t0 = time.perf_counter()
+    got = dw.dbg_walk_device_batch(b_orgs, b_lens, ridx, qs, qe, k, "cuda")
+    dt_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = native.dbg_walk_batch2(b_orgs, b_lens, ridx, qs, qe, k)
+    dt_nat = time.perf_counter() - t0
+    g, w = canonical_walks(got, n), canonical_walks(want, n)
+    diff = [key for key in w if not np.array_equal(g[key], w[key])]
+    info(f"dbg_walk_device_batch vs native on bench batch 1: {n} queries, "
+         f"{int((got['fwd_row'] >= 0).sum() + (got['bwd_row'] >= 0).sum())} "
+         f"unit rows, fields differing: {diff or 'none'} (device "
+         f"{dt_dev:.3f} s incl. first use, native {dt_nat:.3f} s)")
+    check(not diff, "dbg_walk_device_batch disagrees with the native engine")
+    return worst, tot["bad"], (b_orgs, b_lens, (ridx, qs, qe, k))
+
+
 def timer_snapshot():
     from mtr_tpu.utils.timers import TIMERS
 
@@ -339,6 +533,12 @@ def timer_delta(before):
 
     return {k: v - before.get(k, 0.0) for k, v in TIMERS.t.items()
             if v - before.get(k, 0.0) > 0}
+
+
+def counter_delta(before):
+    from mtr_tpu.utils.timers import TIMERS
+
+    return {k: v - before.get(k, 0) for k, v in TIMERS.counters.items()}
 
 
 def main_path(tmp):
@@ -407,34 +607,29 @@ def main_path(tmp):
 
 
 def device_path(fasta, host_out, hybrid_rate, host_rate):
-    """run_file under backend "device" (walks on the host) on the bench
-    set vs mtr_tpu's host output; returns the launch counts of both
-    kernels in this run."""
+    """Phase 3b: run_file under backend "device" with the walks on the host
+    on the bench set vs mtr_tpu's host output."""
     import io
 
     from mtr_tpu.config import MTRConfig
-    from mtr_tpu_torch.ops import directional_index as di
-    from mtr_tpu_torch.ops import wrap_dp_consensus as cons_op
-    from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
     from mtr_tpu_torch.pipeline import make_batcher, run_file
 
     cfg = MTRConfig(backend="device", use_device_walks=False)
     batcher = make_batcher(cfg)
     before = timer_snapshot()
-    counts_op.LAUNCHES = cons_op.LAUNCHES = di.CALLS = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = io.StringIO()
     run_file(fasta, cfg, out, batcher=batcher)
     dt = time.perf_counter() - t0
-    launches = {"counts": counts_op.LAUNCHES, "consensus": cons_op.LAUNCHES}
-    di_calls = di.CALLS
+    launches = read_counts()
     spent = timer_delta(before)
     info(f"bench set, port device: {dt:.3f} s, {BENCH_READS / dt:.3f} reads/s "
          f"(port hybrid {hybrid_rate:.3f}, mtr_tpu host {host_rate:.3f} "
          f"reads/s)")
     info(f"bench set, port device: {launches['counts']} counts launches, "
-         f"{launches['consensus']} consensus launches, {di_calls} device-DI "
-         f"passes")
+         f"{launches['consensus']} consensus launches, {launches['di']} "
+         f"device-DI passes")
     info(f"bench set, port device: counts cells {batcher.cells}, "
          f"consensus cells {batcher.cons_cells}")
     info(f"bench set, port device: DI seconds {spent.get('di_device', 0.0):.3f}"
@@ -443,11 +638,126 @@ def device_path(fasta, host_out, hybrid_rate, host_rate):
          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spent.items())))
     check(out.getvalue() == host_out,
           "port device output differs from mtr_tpu host output")
-    check(launches["counts"] > 0, "the device path launched no counts kernel")
-    check(launches["consensus"] > 0,
-          "the device path launched no consensus kernel")
-    check(di_calls > 0, "the device path ran no device-DI pass")
+    for name in ("counts", "consensus", "di"):
+        check(launches[name] > 0, f"the device path ran no {name} launch")
+    check(launches["dbg_walk"] == 0, "use_device_walks=False walked on the "
+          "device")
+
+
+def reset_counts():
+    from mtr_tpu_torch.ops import dbg_device as dw
+    from mtr_tpu_torch.ops import directional_index as di
+    from mtr_tpu_torch.ops import wrap_dp_consensus as cons_op
+    from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
+
+    counts_op.LAUNCHES = cons_op.LAUNCHES = dw.LAUNCHES = 0
+    dw.STAGE_A_CALLS = di.CALLS = 0
+
+
+def read_counts():
+    from mtr_tpu_torch.ops import dbg_device as dw
+    from mtr_tpu_torch.ops import directional_index as di
+    from mtr_tpu_torch.ops import wrap_dp_consensus as cons_op
+    from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
+
+    return {"counts": counts_op.LAUNCHES, "consensus": cons_op.LAUNCHES,
+            "dbg_walk": dw.LAUNCHES, "stage_a": dw.STAGE_A_CALLS,
+            "di": di.CALLS}
+
+
+def device_walk_path(fasta, host_out):
+    """Phase 3c: run_file under backend "device" with the DBG walks on the
+    card, on the bench set and the 100x10 golden, then the CLI; returns
+    the launch counts of the bench run."""
+    import io
+
+    from mtr_tpu.config import MTRConfig
+    from mtr_tpu.utils.timers import TIMERS
+    from mtr_tpu_torch.pipeline import make_batcher, run_file
+
+    cfg = MTRConfig(backend="device")
+    batcher = make_batcher(cfg)
+    before_t, before_c = timer_snapshot(), dict(TIMERS.counters)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    run_file(fasta, cfg, out, batcher=batcher)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    spent, counted = timer_delta(before_t), counter_delta(before_c)
+    n_q = counted.get("speculative_queries", 0)
+    n_host = counted.get("walk_fallback_queries", 0)
+    info(f"bench set, port device with device walks: {dt:.3f} s, "
+         f"{BENCH_READS / dt:.3f} reads/s, "
+         f"{out.getvalue().count(chr(10))} records")
+    info(f"bench set, device walks: walk seconds {spent.get('walks', 0.0):.3f}"
+         f" (stage A + job building {spent.get('count_table', 0.0):.3f}), "
+         f"{launches['stage_a']} stage-A passes, {launches['dbg_walk']} "
+         f"walk-kernel launches, {counted.get('walk_jobs', 0)} speculative "
+         f"jobs, {n_q} walk queries")
+    info(f"bench set, device walks: walk_fallback_queries {n_host} "
+         f"(share {n_host / max(n_q, 1):.6f})")
+    info(f"bench set, port device with device walks: {launches['counts']} "
+         f"counts launches, {launches['consensus']} consensus launches, "
+         f"{launches['di']} device-DI passes")
+    info("bench set, device walks, stage seconds (threads overlap): "
+         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spent.items())))
+    check(out.getvalue() == host_out,
+          "port device output (device walks) differs from mtr_tpu host")
+    for name in ("counts", "consensus", "dbg_walk", "stage_a", "di"):
+        check(launches[name] > 0, f"the device path ran no {name} launch")
+
+    golden = os.path.join(HERE, "tests", "golden", "multi20_100x10")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    run_file(golden + ".fasta", cfg, out, batcher=make_batcher(cfg))
+    dt = time.perf_counter() - t0
+    with open(golden + ".out") as f:
+        check(out.getvalue() == f.read(),
+              "port device output (device walks) differs from the 100x10 "
+              "golden")
+    info(f"100x10 golden, port device with device walks: identical, "
+         f"{dt:.3f} s")
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "mtr_tpu_torch.cli", "--backend", "device",
+         fasta], cwd=HERE, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    info(f"CLI --backend device on the bench set: exit {r.returncode}, "
+         f"{dt:.3f} s in a new process")
+    check(r.returncode == 0, f"the CLI failed: {r.stderr[-2000:]}")
+    check(r.stdout == host_out, "the CLI's stdout differs from mtr_tpu host")
     return launches
+
+
+def prefilter_path(fasta, host_out):
+    """Phase 3d: the port's hybrid with MTR_TPU_MF_FILTER=1."""
+    import io
+
+    from mtr_tpu.config import MTRConfig
+    from mtr_tpu.utils.timers import TIMERS
+    from mtr_tpu_torch.pipeline import make_batcher, run_file
+
+    cfg = MTRConfig(backend="hybrid")
+    before = dict(TIMERS.counters)
+    os.environ["MTR_TPU_MF_FILTER"] = "1"
+    try:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        run_file(fasta, cfg, out, batcher=make_batcher(cfg))
+        dt = time.perf_counter() - t0
+    finally:
+        del os.environ["MTR_TPU_MF_FILTER"]
+    counted = counter_delta(before)
+    n_q = counted.get("speculative_queries", 0)
+    n_out = counted.get("mf_filtered_queries", 0)
+    info(f"bench set, port hybrid with MTR_TPU_MF_FILTER=1: {dt:.3f} s, "
+         f"{BENCH_READS / dt:.3f} reads/s; {n_out} of {n_q} walk queries "
+         f"filtered out on the card ({n_out / max(n_q, 1):.4f})")
+    check(out.getvalue() == host_out,
+          "port hybrid with the walk pre-filter differs from mtr_tpu host")
+    check(n_out > 0, "the pre-filter filtered no query")
 
 
 def elapsed_ms(fn, n):
@@ -577,6 +887,30 @@ def time_consensus():
     return small_ms, plain_ms
 
 
+def time_walk(bench):
+    """Phase 4c: CUDA-event times of the walk kernel on the speculative
+    jobs of the bench batch's chunk with the most jobs, and the kernel
+    against stage_b_plain on the card on the first 512 of them."""
+    import numpy as np
+
+    from mtr_tpu_torch.ops import dbg_device as dw
+
+    orgs, lens, (ridx, qs, qe, k) = bench
+    v_pad, (sv, adj), job = max(
+        walk_chunks(orgs, lens, np.stack([ridx, qs, qe, k], 1)),
+        key=lambda chunk: chunk[2][0].shape[0])
+    ms = elapsed_ms(lambda: dw.dbg_walk(sv, adj, *job), 3)
+    info(f"walk kernel, bench batch 1's largest job set (V bucket {v_pad}, "
+         f"{job[0].shape[0]} jobs): {ms:.3f} ms/launch")
+    sub = [a[:512] for a in job]
+    sub_ms = elapsed_ms(lambda: dw.dbg_walk(sv, adj, *sub), 3)
+    plain_ms = elapsed_ms(lambda: dw.stage_b_plain(sv, adj, *sub), 1)
+    info(f"walk plain version on the card, first {sub[0].shape[0]} of those "
+         f"jobs: {plain_ms:.1f} ms/call, kernel {sub_ms:.3f} ms "
+         f"({plain_ms / sub_ms:.0f}x)")
+    return sub_ms, plain_ms
+
+
 def main() -> int:
     sys.meta_path.insert(0, _NoJax())
     sys.path.insert(0, HERE)
@@ -594,9 +928,14 @@ def main() -> int:
         build_dir = os.path.join(HERE, "build")
         os.makedirs(build_dir, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-            launches = device_path(*main_path(tmp))
+            fasta, host_out, hybrid_rate, host_rate = main_path(tmp)
+            walk_worst, walk_bad, bench = walk_vs_references(fasta)
+            device_path(fasta, host_out, hybrid_rate, host_rate)
+            launches = device_walk_path(fasta, host_out)
+            prefilter_path(fasta, host_out)
         ms, plain_ms = time_kernel()
         cons_ms, cons_plain_ms = time_consensus()
+        walk_ms, walk_plain_ms = time_walk(bench)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -620,6 +959,16 @@ def main() -> int:
         "max_abs_err": cons_worst,
         "ms": cons_ms,
         "plain_ms": cons_plain_ms,
+    }, {
+        "name": "dbg_walk",
+        "route": "cuda",
+        "source": "mtr_tpu_torch/csrc/dbg_walk.cu",
+        "replaces": WALK_REPLACES,
+        "launches": launches["dbg_walk"],
+        "max_abs_err": walk_worst,
+        "mismatches": walk_bad,
+        "ms": walk_ms,
+        "plain_ms": walk_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

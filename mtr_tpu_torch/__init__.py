@@ -1,16 +1,18 @@
 """mtr_tpu_torch — the PyTorch and CUDA port of mtr_tpu.
 
-Same detection, same output: the host stages (DI, DBG walks, polish,
-chaining, the native C++ DP engine) are mtr_tpu's own modules, imported
+Same detection, same output: the host stages (DI pairing, the native
+walk and DP engines, polish, chaining) are mtr_tpu's own modules, imported
 as they stand; this package owns the device leg, which runs on an NVIDIA
 Hopper card through kernels written by hand in CUDA C++.  It imports
 torch and never jax.
 
 Layering (top to bottom):
   cli        — mTR-compatible command line
-  pipeline   — torch DP batcher, hybrid host/device engine, per-file main loop
-  ops/       — counts-mode wrap-around DP: plain PyTorch version, the
-               resident segment gather, the kernel's build and binding
+  pipeline   — torch DP batcher, hybrid host/device engine, walk stage and
+               wave loop, per-file main loop
+  ops/       — the device ops (wrap-around DP in counts and consensus
+               mode, DBG walks, walk pre-filter, DI) with their plain
+               PyTorch versions, and the kernels' build and binding
   csrc/      — CUDA C++ kernels (sm_90a)
 """
 

@@ -4,12 +4,10 @@ mtr_tpu/cli.py, main.c:40-123).
     python -m mtr_tpu_torch.cli --backend hybrid reads.fasta
 
 --backend: oracle (bit-exact NumPy path), host (native C++ DP engine),
-hybrid (host engine + torch DP kernels on the CUDA card), auto (hybrid
-where a card is present, else host).  device builds mtr_tpu's default
-device configuration, whose DBG walks run on the device; those walks are
-not ported yet, so it exits 1.  run_file / find_repeats with
-MTRConfig(backend="device", use_device_walks=False) run the rest of the
-device backend (every DP job and long-read DI on the card).
+hybrid (host engine + torch DP kernels on the CUDA card), device (every
+DP job, long-read DI and the DBG walks on the card: mtr_tpu's default
+device configuration), auto (hybrid where a card is present, else host).
+hybrid and device exit 1 where torch finds no CUDA card.
 """
 
 from __future__ import annotations
@@ -44,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="oracle = bit-exact NumPy path; host = native C++ DP engine; "
                         "hybrid = host engine + CUDA DP kernels; auto = hybrid when a CUDA "
                         "card is present; device = every DP job, DI and the DBG walks on "
-                        "the card (the walks are not yet ported: exits 1).")
+                        "the card.")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="resume file: skips reads already emitted by a previous run.")
     p.add_argument("--no-strict", action="store_false", dest="strict",

@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, name) for name in (
-    "wrap_dp_counts.cu", "wrap_dp_consensus.cu"))
+    "wrap_dp_counts.cu", "wrap_dp_consensus.cu", "dbg_walk.cu"))
 HEADERS = (os.path.join(_CSRC, "wrap_dp_rows.cuh"),)
 BUILD_DIR = os.path.join(_ROOT, "build", "mtr_tpu_torch")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -93,8 +93,10 @@ def library() -> ctypes.CDLL:
             ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
         lib.mtr_wrap_dp_consensus_traceback.argtypes = [
             ci, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp]
+        lib.mtr_dbg_walk.argtypes = [
+            vp, vp, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp]
         for fn in (lib.mtr_wrap_dp_counts, lib.mtr_wrap_dp_consensus_fill,
-                   lib.mtr_wrap_dp_consensus_traceback):
+                   lib.mtr_wrap_dp_consensus_traceback, lib.mtr_dbg_walk):
             fn.restype = ci
         _LIB = lib
         return lib

@@ -1,18 +1,20 @@
 """PyTorch counterpart of mtr_tpu/pipeline.py: the device DP batcher, the
-hybrid engine and the per-file main loop.
+hybrid engine, the walk stage, the wave loop and the per-file main loop.
 
-Every host stage (DI pairing and candidate ranges, DBG walks, polish,
-chaining, the native C++ DP engine) is reused from mtr_tpu as it stands;
-none of them imports JAX.  What this module owns is the device leg: the
+Every host stage (DI pairing and candidate ranges, polish, chaining, the
+native C++ DP and walk engines) is reused from mtr_tpu as it stands; none
+of them imports JAX.  What this module owns is the device leg: the
 wrap-around DP jobs on a CUDA card (counts mode through
 ops/wrap_dp_counts.py, consensus mode through ops/wrap_dp_consensus.py),
 the hybrid split that feeds it, and, under backend "device", the DI
-sliding windows of long reads (ops/directional_index.py).
+sliding windows of long reads (ops/directional_index.py) and the DBG
+walks (ops/dbg_device.py).  walk_batch and process_batch are this
+module's own copies of mtr_tpu's, whose walk branches call the port, so
+that every wave's walks run where the config says.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import threading
 import time
@@ -22,24 +24,35 @@ import numpy as np
 import torch
 
 from mtr_tpu import native
+from mtr_tpu.chaining import chain_records
 from mtr_tpu.config import DEFAULT_CONFIG, MTRConfig
 from mtr_tpu.io.fasta import iter_fasta
 from mtr_tpu.oracle.arena import Arena
+from mtr_tpu.oracle.dbg import freq_2mer_array, walk_candidates
 from mtr_tpu.oracle.directional_index import fill_directional_index_with_end
 from mtr_tpu.pipeline import (
+    MAX_WAVES,
     MOVES_BYTES_CAP,
     TB_FACTOR,
     DPJob,
     HostDPBatcher,
+    RangeQuery,
     ReadState,
+    _accepts,
+    _collect_queries,
+    _env_flag,
+    _live_positions,
+    _process_wave,
     dedup_jobs,
-    process_batch,
-    walk_batch,
     wave1_positions,
     waves_policy,
 )
+from mtr_tpu.records import RepeatRecord
+from mtr_tpu.utils.encoding import decode_bases
 from mtr_tpu.utils.timers import TIMERS
+from mtr_tpu_torch.ops.dbg_device import dbg_walk_device_batch, native_walks
 from mtr_tpu_torch.ops.directional_index import make_di_compute
+from mtr_tpu_torch.ops.mf_filter import walked_mask
 from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
 from mtr_tpu_torch.ops.wrap_dp_counts import (
     R_MAX,
@@ -50,8 +63,12 @@ from mtr_tpu_torch.ops.wrap_dp_counts import (
 
 
 class BackendUnavailable(RuntimeError):
-    """The requested backend cannot run here (no CUDA card, or a part not
-    yet ported)."""
+    """The requested backend cannot run here (no CUDA card)."""
+
+
+# the hybrid's walk pre-filter engages from this many queries per batch
+# (mtr_tpu/pipeline.py:1379)
+MF_FILTER_MIN_QUERIES = 32768
 
 
 def _u_span(unit_len: int) -> int:
@@ -370,6 +387,267 @@ def make_batcher(cfg: MTRConfig):
     raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
+def batcher_device(batcher) -> torch.device:
+    """The torch device a port batcher runs on; CUDA for any other batcher
+    (device DI and device walks need a card)."""
+    if isinstance(batcher, TorchHybridDPBatcher):
+        batcher = batcher.device
+    if isinstance(batcher, TorchDPBatcher):
+        return batcher.device
+    return torch.device("cuda")
+
+
+def _use_mf_filter(cfg: MTRConfig, n_q: int, device) -> bool:
+    """The hybrid's opt-in walk pre-filter (MTR_TPU_MF_FILTER): batches of
+    MF_FILTER_MIN_QUERIES queries or more, on a CUDA device.  OPT-IN as in
+    mtr_tpu, where the device filter paid only when host cores were scarce
+    against the chip (mtr_tpu/pipeline.py:1382-1392)."""
+    return (cfg.backend == "hybrid" and _env_flag("MTR_TPU_MF_FILTER")
+            and n_q >= MF_FILTER_MIN_QUERIES and device.type == "cuda")
+
+
+def _filtered_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a, device):
+    """The native walks of the queries walked_mask keeps; the rest get the
+    unwalked result (found 0, no rows).  A device fault raises."""
+    n_q = len(ridx_a)
+    sub = np.nonzero(walked_mask(orgs, lens, ridx_a, qs_a, qe_a, k_a,
+                                 device))[0]
+    TIMERS.count("mf_filtered_queries", n_q - len(sub))
+    r = native_walks(orgs, lens, ridx_a[sub], qs_a[sub], qe_a[sub], k_a[sub])
+    res = {"units": r["units"], "scores": r["scores"]}
+    for key in ("fwd_row", "bwd_row", "fwd_period", "bwd_period",
+                "found_last"):
+        res[key] = np.full(n_q, -1 if key.endswith("row") else 0, np.int32)
+        res[key][sub] = r[key]
+    return res
+
+
+def _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a, k_a):
+    """RangeQuery objects for the queries whose walk found a unit, with
+    their candidate records (mtr_tpu/pipeline.py:1419-1462)."""
+    n_q = len(ridx_a)
+    frow, brow = res["fwd_row"], res["bwd_row"]
+    units_rows, scores_rows = res["units"], res["scores"]
+    unit_cache: dict = {}  # unit bytes -> (string, freq_2mer)
+    hits = np.nonzero((frow[:n_q] >= 0) | (brow[:n_q] >= 0))[0]
+    h_ridx = ridx_a[hits].tolist()
+    h_qs = qs_a[hits].tolist()
+    h_qe = qe_a[hits].tolist()
+    h_w = w_a[hits].tolist()
+    h_k = k_a[hits].tolist()
+    h_f = frow[hits].tolist()
+    h_b = brow[hits].tolist()
+    h_fp = res["fwd_period"][hits].tolist()
+    h_bp = res["bwd_period"][hits].tolist()
+    h_found = res["found_last"][hits].tolist()
+    cand_proto = RepeatRecord().__dict__
+    queries: list[RangeQuery] = []
+    for hi in range(len(hits)):
+        st = states[h_ridx[hi]]
+        q = RangeQuery(h_ridx[hi], h_qs[hi], h_qe[hi], h_w[hi], h_k[hi])
+        q.found = h_found[hi]
+        for row, period in ((h_f[hi], h_fp[hi]), (h_b[hi], h_bp[hi])):
+            if row < 0:
+                continue
+            ukey = units_rows[row][:period].tobytes()
+            ent = unit_cache.get(ukey)
+            if ent is None:
+                unit = units_rows[row][:period].tolist()
+                ent = (decode_bases(unit), freq_2mer_array(unit))
+                unit_cache[ukey] = ent
+            cand = RepeatRecord.__new__(RepeatRecord)
+            cand.__dict__.update(cand_proto)
+            cand.read_id = st.read.read_id
+            cand.input_len = st.read.length
+            cand.kmer = q.k
+            cand.rep_period = period
+            cand.string = ent[0]
+            cand.string_score = scores_rows[row][:period].copy()
+            cand.freq_2mer = list(ent[1])
+            q.candidates.append(cand)
+        queries.append(q)
+    return queries
+
+
+def walk_batch(states: list[ReadState], cfg: MTRConfig, pos_sel=None,
+               device=None) -> list[RangeQuery]:
+    """Phase 2, the (range, k) walk queries of a batch or of one wave
+    (mtr_tpu/pipeline.py:1347-1487): on `device` (CUDA when None) through
+    ops/dbg_device.py under backend "device" with use_device_walks, else
+    on the native engine (behind the device pre-filter under "hybrid"
+    with MTR_TPU_MF_FILTER), else the oracle."""
+    _t_period = time.time()  # walk share of "Computing periods"
+    ridx_a, qs_a, qe_a, w_a, k_a = _collect_queries(states, cfg, pos_sel)
+    n_q = len(ridx_a)
+    device = torch.device("cuda") if device is None else device
+    orgs = [st.org for st in states]
+    lens = [st.read.length for st in states]
+
+    _t_walk = time.time()
+    res = None
+    if cfg.backend == "device" and cfg.use_device_walks and n_q:
+        res = dbg_walk_device_batch(orgs, lens, ridx_a, qs_a, qe_a, k_a,
+                                    device)
+    elif cfg.use_native and native.available() and n_q:
+        if _use_mf_filter(cfg, n_q, device):
+            res = _filtered_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a, device)
+        else:
+            res = native_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a)
+    if res is not None:
+        queries = _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a, k_a)
+    else:
+        queries = []
+        for i in range(n_q):
+            st = states[int(ridx_a[i])]
+            q = RangeQuery(int(ridx_a[i]), int(qs_a[i]), int(qe_a[i]),
+                           int(w_a[i]), int(k_a[i]))
+            template = RepeatRecord()
+            template.read_id = st.read.read_id
+            template.input_len = st.read.length
+            template.kmer = q.k
+            q.candidates, q.found = walk_candidates(
+                st.org, st.read.length, q.qs, q.qe, template)
+            if q.candidates:
+                queries.append(q)
+
+    TIMERS.add("walks", time.time() - _t_walk)
+    if native.available():
+        # the walk engine's measured init / count-table sections (zeros
+        # unless -c enabled them)
+        init_s, count_s, _walk_s = native.read_stage_timers()
+        TIMERS.add("initialize", init_s)
+        TIMERS.add("count_table", count_s)
+    TIMERS.count("speculative_queries", n_q)
+    TIMERS.add("period", time.time() - _t_period)
+    return queries
+
+
+def process_batch(states: list[ReadState], batcher, cfg: MTRConfig,
+                  queries: list[RangeQuery] | None = None, pos_sel=None,
+                  device=None):
+    """Wave-pruned batch processing (mtr_tpu/pipeline.py:1560-1705, whose
+    docstring describes the waves), with every wave's walks through this
+    module's walk_batch on `device`."""
+    batcher.begin_batch([st.org for st in states])
+
+    _t0 = time.time()  # DP share of "Computing periods" (main.c:113)
+    _t_walks = 0.0     # walk_batch reports its own time
+
+    all_pos = [_live_positions(st) for st in states]
+    for p in all_pos:
+        TIMERS.count("ranges_total", len(p))
+    computed = [np.zeros(len(st.di_end), bool) for st in states]
+    if queries is None:
+        pos_sel = wave1_positions(states, cfg)
+        _tw = time.time()
+        queries = walk_batch(states, cfg, pos_sel, device)
+        _t_walks += time.time() - _tw
+    elif pos_sel is None:
+        pos_sel = all_pos  # callers that pre-walk every position
+
+    range_result: dict[tuple[int, int, int], RepeatRecord | None] = {}
+    cursor = [0] * len(states)
+    accepted: list[list[RepeatRecord]] = [[] for _ in states]
+    nq = [0] * len(states)
+    wave = 0
+    while True:
+        wave += 1
+        for ridx, ps in enumerate(pos_sel):
+            if len(ps):
+                computed[ridx][ps] = True
+                TIMERS.count("computed_ranges", len(ps))
+        _process_wave(states, batcher, cfg, queries, range_result)
+
+        # exact replay: advance cursors, apply kills to the live arrays
+        alldone = True
+        for ridx, st in enumerate(states):
+            di, di_end, di_w = st.di, st.di_end, st.di_w
+            pos = all_pos[ridx]
+            c = cursor[ridx]
+            comp = computed[ridx]
+            while c < len(pos):
+                p = int(pos[c])
+                qe = int(di_end[p])
+                if qe < 0:
+                    # suppressed before its turn; never computed means
+                    # skipped exactly as the reference skips it
+                    TIMERS.count("suppressed_ranges")
+                    if not comp[p]:
+                        TIMERS.count("pruned_ranges")
+                    c += 1
+                    continue
+                if not comp[p]:
+                    break  # a later wave must compute this position
+                nq[ridx] += 1  # reference query_counter: per live range
+                rr = range_result.get((ridx, p, qe))
+                if _accepts(rr):
+                    accepted[ridx].append(rr)
+                    span = np.arange(rr.rep_start, rr.rep_end)
+                    kill = span[(di[span] != -1) & (di_end[span] < rr.rep_end)]
+                    di[kill] = -1.0
+                    di_end[kill] = -1
+                    di_w[kill] = -1
+                c += 1
+            cursor[ridx] = c
+            if c < len(pos):
+                alldone = False
+        if alldone:
+            break
+
+        # next wave: optimistic simulation from each cursor
+        pos_sel = []
+        n_new = 0
+        for ridx, st in enumerate(states):
+            pos = all_pos[ridx]
+            c = cursor[ridx]
+            if c >= len(pos):
+                pos_sel.append(pos[:0])
+                continue
+            comp = computed[ridx]
+            if wave >= MAX_WAVES:
+                # bound the wave count: compute everything still alive
+                rem = pos[c:]
+                live = rem[(st.di_end[rem] >= 0) & ~comp[rem]]
+                pos_sel.append(live)
+                n_new += len(live)
+                continue
+            di_s = st.di.copy()
+            de_s = st.di_end.copy()
+            need: list[int] = []
+            for p in pos[c:]:
+                p = int(p)
+                qe = int(de_s[p])
+                if qe < 0:
+                    continue
+                if not comp[p]:
+                    need.append(p)
+                    continue
+                rr = range_result.get((ridx, p, qe))
+                if _accepts(rr):
+                    span = np.arange(rr.rep_start, rr.rep_end)
+                    kill = span[(di_s[span] != -1) & (de_s[span] < rr.rep_end)]
+                    di_s[kill] = -1.0
+                    de_s[kill] = -1
+            pos_sel.append(np.asarray(need, dtype=pos.dtype))
+            n_new += len(need)
+        if n_new == 0:  # a raise, not an assert: -O would drop it and
+            # turn a stall into an endless loop
+            raise RuntimeError("wave selection stalled with unfinished reads")
+        TIMERS.count("waves_extra")
+        _tw = time.time()
+        queries = walk_batch(states, cfg, pos_sel, device)
+        _t_walks += time.time() - _tw
+
+    TIMERS.add("period", time.time() - _t0 - _t_walks)
+
+    out = []
+    for ridx in range(len(states)):
+        TIMERS.count("queries", nq[ridx])
+        with TIMERS.section("chaining"):
+            out.append(chain_records(accepted[ridx]))
+    return out
+
+
 def run_file(
     path: str,
     cfg: MTRConfig = DEFAULT_CONFIG,
@@ -385,22 +663,14 @@ def run_file(
     batcher (make_batcher(cfg) unless one is given); arguments as there.
 
     Under backend "device", DI of reads of cfg.device_di_threshold bases
-    or more runs on the batcher's device (CUDA unless the batcher is a
-    TorchDPBatcher on another device), as mtr_tpu does; every other
-    backend keeps DI on the host.  The device DBG walks are not ported:
-    backend "device" needs cfg.use_device_walks False, which runs the
-    walks on the native engine exactly as mtr_tpu's device backend
-    does with that setting."""
+    or more, and the DBG walks unless cfg.use_device_walks is False, run
+    on the batcher's device (CUDA unless the batcher is a TorchDPBatcher
+    on another device), as mtr_tpu does; every other backend keeps DI
+    and the walks on the host, the hybrid's opt-in walk pre-filter
+    aside."""
     import gc
     import sys
 
-    if cfg.backend == "device" and cfg.use_device_walks:
-        raise BackendUnavailable(
-            "--backend device runs the DBG walks on the device, which "
-            "mtr_tpu_torch has not ported yet; run_file / find_repeats "
-            "with MTRConfig(backend='device', use_device_walks=False) run "
-            "every DP job and long-read DI on the card and the walks on "
-            "the host (see ROADMAP.md)")
     if out is None:
         out = sys.stdout
     # millions of small acyclic records per batch: widen the gc
@@ -412,18 +682,10 @@ def run_file(
     arena = Arena(cfg.max_input_length)
     if batcher is None:
         batcher = make_batcher(cfg)
+    device = batcher_device(batcher)
     di_compute = None
     if cfg.backend == "device":
-        di_compute = make_di_compute(
-            batcher.device if isinstance(batcher, TorchDPBatcher)
-            else torch.device("cuda"), cfg.manhattan_distance)
-    # mtr_tpu's walk_batch / process_batch get backend="host": there,
-    # `backend` gates only the JAX device walks ("device" with
-    # use_device_walks, refused above) and the JAX walk pre-filter
-    # ("hybrid", whose probe imports jax for every batch of 32768+
-    # queries).  Both are off under "host", so the output cannot change,
-    # and no stage of the port reaches JAX.
-    host_cfg = dataclasses.replace(cfg, backend="host")
+        di_compute = make_di_compute(device, cfg.manhattan_distance)
     batch: list[ReadState] = []
     done_reads = 0
     skip = 0
@@ -489,8 +751,8 @@ def run_file(
                 if "error" in ha:
                     raise ha["error"]
                 hb["results"] = process_batch(
-                    states, batcher, host_cfg, queries=ha["queries"],
-                    pos_sel=ha["pos_sel"])
+                    states, batcher, cfg, queries=ha["queries"],
+                    pos_sel=ha["pos_sel"], device=device)
             except Exception as e:  # reported or re-raised by drain_b
                 hb["error"] = e
 
@@ -517,9 +779,9 @@ def run_file(
         def work_a():
             try:
                 ha["pos_sel"] = wave1_positions(
-                    states, host_cfg, force=adapt["on"])
+                    states, cfg, force=adapt["on"])
                 _t0 = time.time()
-                ha["queries"] = walk_batch(states, host_cfg, ha["pos_sel"])
+                ha["queries"] = walk_batch(states, cfg, ha["pos_sel"], device)
                 adapt["walk_s"] = time.time() - _t0
             except Exception as e:  # re-raised by work_b
                 ha["error"] = e

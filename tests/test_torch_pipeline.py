@@ -1,7 +1,8 @@
 """The port's pipeline on the CPU: its run_file reproduces the in-repo
 goldens byte for byte, on the host engine, on the torch hybrid with its
-device leg engaged, and on the device backend (every DP job and DI on
-the torch device), with the plain PyTorch ops on CPU tensors; backend
+device leg engaged (and with its walk pre-filter), and on the device
+backend (every DP job, DI and the DBG walks on the torch device, every
+wave included), with the plain PyTorch ops on CPU tensors; backend
 selection raises rather than falling back; the package runs with JAX
 blocked."""
 
@@ -16,8 +17,9 @@ import torch
 
 from mtr_tpu.config import MTRConfig
 from mtr_tpu.pipeline import DPJob, HostDPBatcher
+from mtr_tpu.utils.timers import TIMERS
 from mtr_tpu_torch import pipeline as tp
-from mtr_tpu_torch.ops import directional_index, wrap_dp_resident
+from mtr_tpu_torch.ops import dbg_device, directional_index, wrap_dp_resident
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -71,9 +73,18 @@ def test_cpu_hybrid_matches_golden_with_device_leg(monkeypatch):
     assert batcher.device.cells > 0 and batcher.host_cells > 0
 
 
+def _never(*args, **kw):
+    raise AssertionError("mtr_tpu's walk stage was called")
+
+
 def test_host_stages_get_host_backend(monkeypatch):
-    """walk_batch / process_batch see backend="host" whatever the run's
-    backend, so mtr_tpu never reaches its JAX walk paths."""
+    """The walk stage and the wave loop are the port's own: they see the
+    run's real backend, and mtr_tpu's walk_batch / process_batch (whose
+    device branches import JAX) are never reached."""
+    import mtr_tpu.pipeline as mp
+
+    monkeypatch.setattr(mp, "walk_batch", _never)
+    monkeypatch.setattr(mp, "process_batch", _never)
     seen = []
     for name in ("walk_batch", "process_batch"):
         real = getattr(tp, name)
@@ -88,7 +99,7 @@ def test_host_stages_get_host_backend(monkeypatch):
                batcher=HostDPBatcher())
     assert got == _golden("multitr_gen_2_5_10_20")
     assert {n for n, _ in seen} == {"walk_batch", "process_batch"}
-    assert {b for _, b in seen} == {"host"}
+    assert {b for _, b in seen} == {"hybrid"}
 
 
 def test_make_batcher_backends():
@@ -110,10 +121,14 @@ def test_cli_host_and_refusals(capsys):
     fasta = os.path.join(GOLDEN, "multitr_gen_2_5_10_20.fasta")
     assert cli.main(["--backend", "host", fasta]) == 0
     assert capsys.readouterr().out == _golden("multitr_gen_2_5_10_20")
-    # the CLI's device backend asks for the device walks, not yet ported
-    assert cli.main(["--backend", "device", fasta]) == 1
-    err = capsys.readouterr().err
-    assert "walks" in err and "use_device_walks=False" in err
+    if torch.cuda.is_available():
+        return  # the refusals below are those of a machine without a card
+    # the CLI's device backend runs everything on the card: without one
+    # it exits 1 with the no-CUDA message, and prints no record
+    for backend in ("device", "hybrid"):
+        assert cli.main(["--backend", backend, fasta]) == 1
+        got = capsys.readouterr()
+        assert "needs a CUDA device" in got.err and not got.out
 
 
 def test_cuda_requests_raise_without_cuda():
@@ -215,12 +230,88 @@ def test_device_run_file_matches_golden(monkeypatch):
     assert directional_index.CALLS > di_before
 
 
-def test_device_backend_refuses_device_walks():
-    """Checked before the batcher is made: the same refusal with or
-    without a card, and no quiet host walks."""
-    with pytest.raises(tp.BackendUnavailable, match="use_device_walks"):
-        _run("multitr_gen_2_5_10_20", MTRConfig(backend="device"),
-             batcher=tp.TorchDPBatcher(torch.device("cpu")))
+def test_device_backend_refuses_device_walks(monkeypatch):
+    """The device walks are no longer refused: MTRConfig(backend="device")
+    (mtr_tpu's default, walks on the device) on a CPU TorchDPBatcher
+    reproduces the golden, with every walk query through the port's
+    stage A / B and no native walk call but the host route's."""
+    calls = []
+    real = tp.dbg_walk_device_batch
+    monkeypatch.setattr(tp, "dbg_walk_device_batch",
+                        lambda *a: calls.append(a[-1]) or real(*a))
+    native_walks = []
+    real_native = tp.native.dbg_walk_batch2
+    monkeypatch.setattr(tp.native, "dbg_walk_batch2",
+                        lambda *a, **k: native_walks.append(len(a[2]))
+                        or real_native(*a, **k))
+    stage_a = dbg_device.STAGE_A_CALLS
+    before = dict(TIMERS.counters)
+    got = _run("multitr_gen_2_5_10_20", MTRConfig(backend="device"),
+               batcher=tp.TorchDPBatcher(torch.device("cpu")))
+    assert got == _golden("multitr_gen_2_5_10_20")
+    assert calls and {d.type for d in calls} == {"cpu"}
+    assert dbg_device.STAGE_A_CALLS > stage_a
+
+    def grew(key):
+        return TIMERS.counters[key] - before.get(key, 0)
+
+    assert grew("walk_jobs") > 0
+    # the one host-route query of this set goes to the native engine
+    assert sum(native_walks) == grew("walk_fallback_queries")
+
+
+def test_device_walks_every_wave(monkeypatch):
+    """MTR_TPU_WAVES=1: waves 2+ are walked inside process_batch, through
+    the port's walk_batch on the device walks.  The DP runs on the host
+    leg of a CPU hybrid batcher (default thresholds) and six of the 20
+    reads are kept, which keeps the test short; the walk device is the
+    batcher's."""
+    import mtr_tpu.pipeline as mp
+
+    monkeypatch.setenv("MTR_TPU_WAVES", "1")
+    monkeypatch.setattr(mp, "walk_batch", _never)
+    devices = []
+    real = tp.dbg_walk_device_batch
+    monkeypatch.setattr(tp, "dbg_walk_device_batch",
+                        lambda *a: devices.append(a[-1]) or real(*a))
+    before = TIMERS.counters["waves_extra"]
+    picks = set(range(6))
+    got = _run("multi20_100x10", MTRConfig(backend="device"),
+               batcher=tp.TorchHybridDPBatcher(torch.device("cpu")),
+               read_filter=picks.__contains__)
+    assert got == _golden_lines("multi20_100x10", {str(r) for r in picks})
+    assert TIMERS.counters["waves_extra"] > before
+    assert len(devices) > 1 and {d.type for d in devices} == {"cpu"}
+
+
+def test_hybrid_walk_prefilter(monkeypatch):
+    """The port's hybrid honours MTR_TPU_MF_FILTER (here with its size and
+    CUDA gates opened, so walked_mask runs on CPU tensors): the native
+    engine walks only the queries the filter keeps, and the output stays
+    the golden."""
+    monkeypatch.setattr(tp, "_use_mf_filter", lambda cfg, n_q, device: True)
+    masks = []
+    real = tp.walked_mask
+    monkeypatch.setattr(tp, "walked_mask",
+                        lambda *a: masks.append(real(*a)) or masks[-1])
+    got = _run("multi20_100x10", MTRConfig(backend="hybrid"),
+               batcher=tp.TorchHybridDPBatcher(torch.device("cpu")))
+    assert got == _golden("multi20_100x10")
+    kept = np.concatenate(masks)
+    assert 0 < kept.sum() < len(kept) // 2
+
+
+def test_mf_filter_gate(monkeypatch):
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    hybrid = MTRConfig(backend="hybrid")
+    n = tp.MF_FILTER_MIN_QUERIES
+    monkeypatch.delenv("MTR_TPU_MF_FILTER", raising=False)
+    assert not tp._use_mf_filter(hybrid, n, cuda)
+    monkeypatch.setenv("MTR_TPU_MF_FILTER", "1")
+    assert tp._use_mf_filter(hybrid, n, cuda)
+    assert not tp._use_mf_filter(hybrid, n - 1, cuda)
+    assert not tp._use_mf_filter(hybrid, n, cpu)
+    assert not tp._use_mf_filter(MTRConfig(backend="host"), n, cuda)
 
 
 def test_hybrid_runs_consensus_on_device_leg(monkeypatch):
@@ -276,10 +367,11 @@ mtr_tpu_torch.pipeline.run_file(sys.argv[1] + ".fasta",
 assert out.getvalue() == open(sys.argv[1] + ".out").read()
 recs = mtr_tpu_torch.find_repeats("ACGTTT" * 50, MTRConfig(backend="host"))
 assert len(recs) == 1
-# the device path on CPU tensors: every DP job and the DI on torch
+# the device path on CPU tensors: every DP job, the DI and the walks on
+# torch
 import os, random, tempfile
 import torch
-from mtr_tpu_torch.ops import directional_index
+from mtr_tpu_torch.ops import dbg_device, directional_index
 rnd = random.Random(5)
 flank = lambda n: "".join(rnd.choice("ACGT") for _ in range(n))
 unit = flank(23)
@@ -288,8 +380,7 @@ with tempfile.NamedTemporaryFile("w", suffix=".fasta", delete=False) as f:
     f.write(">r\n" + seq + "\n")
 outs = []
 for cfg, batcher in (
-        (MTRConfig(backend="device", use_device_walks=False,
-                   device_di_threshold=500),
+        (MTRConfig(backend="device", device_di_threshold=500),
          mtr_tpu_torch.pipeline.TorchDPBatcher(torch.device("cpu"))),
         (MTRConfig(backend="host"), None)):
     out = io.StringIO()
@@ -297,7 +388,7 @@ for cfg, batcher in (
     outs.append(out.getvalue())
 os.unlink(f.name)
 assert outs[0] == outs[1] and outs[0], outs
-assert directional_index.CALLS > 0
+assert directional_index.CALLS > 0 and dbg_device.STAGE_A_CALLS > 0
 from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
 fused, best = wrap_dp_consensus(
     torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], dtype=torch.int8),
