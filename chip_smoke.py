@@ -4,20 +4,25 @@
     python3 chip_smoke.py        # from the repository root
 
 Phases, in order; any failure exits non-zero before the result line:
-  1. preflight: a CUDA card, the native host engine (built with make at
-     first use), the card's name and power limit, the kernels' build;
+  1. preflight: a CUDA card, the port's native host engine (built for
+     this machine's CPU at first use), the card's name and power limit,
+     the kernels' build;
   2. the counts kernel against its plain PyTorch version on the card
-     (rep_len <= 2048, every unit span, degenerate jobs) and against the
-     native host engine at main-path sizes, with zero tolerance: the
-     results are integers;
+     (rep_len <= 2048; units at 32C and 32C + 1 for every C = 1..16 and
+     at the old span edges; degenerate jobs; one launch per C, then all
+     in one mixed launch) and against the native host engine at main-path
+     sizes and past rep_len 32,768, with zero tolerance: the results are
+     integers;
   2b. the consensus kernels (fill + traceback) against their plain
      versions on the card (units 2-500, three schemes, rep_len <= 2048,
      degenerate jobs: best and the (B, 500, 9) polish tensor) and against
      the native host engine at polish sizes, with zero tolerance;
   3. the hybrid path: the port's hybrid engine on the bench's 200 bp x
-     200 copy set (20 reads of ~120 kb), byte-identical to mtr_tpu's host
-     backend, with kernel launches and device-leg cells counted; then the
-     in-repo 100x10 golden;
+     200 copy set (20 reads of ~120 kb) and the port's host backend on
+     this machine's CPU, each byte-identical to
+     tests/golden/bench_200x200.out (mtr_tpu's host backend on that set),
+     with kernel launches and device-leg cells counted; then the in-repo
+     100x10 golden;
   2c. the DBG walk kernel against stage_b_plain on the card, with zero
      tolerance, on fuzzed jobs (periodic reads with units 2-120, k 2-15
      with ranges at the read's end, homopolymer / 2-mer tie storms, walks
@@ -27,8 +32,8 @@ Phases, in order; any failure exits non-zero before the result line:
      result equal (it runs after phase 3, which writes the set);
   3b. the device path with the walks on the host: run_file with
      MTRConfig(backend="device", use_device_walks=False) on the same set,
-     byte-identical to mtr_tpu's host backend, with counts and consensus
-     launches and device-DI passes counted;
+     byte-identical to the golden, with counts and consensus launches and
+     device-DI passes counted;
   3c. the device path whole: run_file with MTRConfig(backend="device")
      (mtr_tpu's default: DBG walks on the card) on the bench set and the
      100x10 golden, byte-identical, with the launches of all three
@@ -37,19 +42,25 @@ Phases, in order; any failure exits non-zero before the result line:
      subprocess, same stdout;
   3d. the hybrid with MTR_TPU_MF_FILTER=1 (the walk pre-filter on the
      card), byte-identical, with the queries it filtered out;
-  4. counts kernel times with CUDA events at the bench's GCUPS shapes,
-     and the plain version's time at the first of them;
+  4. counts kernel times with CUDA events against its first design
+     (csrc/wrap_dp_counts_block.cu) in turns, at the bench's GCUPS shapes
+     and at unit 400, with GCUPS, bound and share of bound; the plain
+     version's time at the first shape;
+  4d. the hybrid's bench run under torch.profiler with the counts kernel
+     and with its first design: counts-kernel device time, launches, jobs
+     and longest rep_len a launch;
   4b. consensus kernel times (fill + traceback, and the fill alone) with
-     CUDA events, the plain version's time, and one device-DI pass;
+     CUDA events, bound, the plain version's time, and one device-DI pass;
   4c. the walk kernel's time with CUDA events on the jobs of one bench
-     chunk, and against stage_b_plain on a subset of them.
+     chunk, its bound, and against stage_b_plain on a subset of them.
 
 Each path of phase 3 sets the kernels' launch counts to 0 before it runs
-and fails if a kernel of that path was not launched.
+and fails if a kernel of that path was not launched.  A path whose output
+differs from its golden prints the first differing line.
 
 The next-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}.  JAX is never imported: a meta-path hook
-refuses it.
+{"ok": true, "device": {...}}.  Neither JAX nor mtr_tpu is ever
+imported: a meta-path hook refuses both.
 """
 
 from __future__ import annotations
@@ -61,6 +72,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCHEMES = ((1, 1, 3), (1, 3, 1), (5, 1, 1))
@@ -79,15 +92,20 @@ CONS_REPLACES = ("mtr_tpu/ops/wrap_dp_pallas.py:52 (with "
 # the bench set's largest polish job, and two long ones
 POLISH_SIZES = ((203, 4167), (100, 10000), (480, 10000))
 BENCH_READS = 20  # the bench set's reads (bench.py:87-91)
+BENCH_ARGS = (200, 200, 9.7, 2.9, 7.5, 40000, 40000, BENCH_READS)
 WALK_REPLACES = "mtr_tpu/ops/dbg_device.py:132 (_stage_b)"
 WALK_UNITS = (2, 3, 7, 15, 33, 60, 95, 120)
 WHALE_WIDTHS = (2048, 5000, 12000, 38371)
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
+    """Refuses jax and the JAX package mtr_tpu: the port stands alone."""
+
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError(f"chip_smoke imports no JAX (asked: {name})")
+        if name in ("jax", "mtr_tpu") or name.startswith(
+                ("jax.", "jaxlib", "mtr_tpu.")):
+            raise ImportError(f"chip_smoke imports neither JAX nor mtr_tpu "
+                              f"(asked: {name})")
         return None
 
 
@@ -160,21 +178,26 @@ def run_kernel(batch, u_span):
 # -------------------------------------------------------------- phases
 
 
-def preflight():
-    import torch
-
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    from mtr_tpu import native
-
-    t0 = time.perf_counter()
-    check(native.available(), "native host engine (native/libmtr_host.so) "
-          "did not build: the host leg would drop to the Python oracle")
-    info(f"native host engine ready in {time.perf_counter() - t0:.1f} s")
+def card_line():
+    """nvidia-smi's name and power limit of the card."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    info(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def preflight():
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    from mtr_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.available()  # builds the engine for this CPU, or raises
+    info(f"native host engine ready in {time.perf_counter() - t0:.1f} s "
+         f"({os.path.relpath(native.library_path(), HERE)})")
+    info(card_line())
     info(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
          f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     from mtr_tpu_torch.ops import _build
@@ -186,35 +209,45 @@ def preflight():
 
 
 def kernel_vs_references():
-    """Returns the largest absolute difference seen (must be 0)."""
+    """Phase 2.  Returns the largest absolute difference seen (must be
+    0)."""
     import numpy as np
     import torch
 
-    from mtr_tpu import native
-    from mtr_tpu_torch.ops.wrap_dp_counts import wrap_dp_counts_plain
+    from mtr_tpu_torch import native
+    from mtr_tpu_torch.ops.wrap_dp_counts import (
+        U_SPANS,
+        u_span_for,
+        wrap_dp_counts_plain,
+    )
     from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
-    from mtr_tpu_torch.pipeline import _u_span
 
     rng = np.random.default_rng(20240)
     worst = 0
-    # (a) against the plain version on the card, rep_len <= 2048
+    # (a) against the plain version on the card, rep_len <= 2048: units at
+    # 32C and 32C + 1 for every C the kernel is instantiated for, and the
+    # old span edges
+    unit_lens = sorted({u for span in U_SPANS for u in (span, span + 1)
+                        if u <= 500} | set(UNIT_LENS))
     by_span: dict = {}
-    for ul in UNIT_LENS:
+    for ul in unit_lens:
         for scheme in SCHEMES:
             unit = rng.integers(0, 4, ul).astype(np.int8)
             rl = int(rng.integers(ul, 2049))
-            by_span.setdefault(_u_span(ul), []).extend([
+            by_span.setdefault(u_span_for(ul), []).extend([
                 (periodic_rep(rng, unit, rl), unit, scheme),
                 # deletion-heavy, non-periodic
                 (rng.integers(0, 4, int(rng.integers(1, 2049))).astype(
                     np.int8), unit, scheme),
             ])
-    for scheme in SCHEMES:  # degenerate: rep_len 1 and 0, unit_len 2
-        by_span[128] += [
+    for scheme in SCHEMES:  # degenerate: rep_len 1 and 0, unit_len 1 and 2
+        by_span[32] += [
             (np.array([1], np.int8), np.array([1, 2], np.int8), scheme),
             (np.array([3], np.int8), np.array([3, 3], np.int8), scheme),
             (np.zeros(0, np.int8), np.array([0, 0], np.int8), scheme),
+            (np.array([2, 2, 1], np.int8), np.array([2], np.int8), scheme),
         ]
+    n_jobs = bad_total = 0
     for u_span, jobs in sorted(by_span.items()):
         batch = make_batch(jobs, u_span)
         got = run_kernel(batch, u_span)
@@ -222,18 +255,40 @@ def kernel_vs_references():
                                      for a in batch)
         r_pad = max(1, int(batch[2][:, 0].max()))
         want = wrap_dp_counts_plain(
-            scal, gather_segments(flat, starts, r_pad), units).cpu().numpy()
+            scal, gather_segments(flat, starts, r_pad),
+            torch.nn.functional.pad(units, (0, 512 - u_span), value=-2),
+        ).cpu().numpy()
         diff = np.abs(got[:, :11].astype(np.int64) - want[:, :11])
         bad = int((diff.max(axis=1) > 0).sum())
         worst = max(worst, int(diff.max()))
-        info(f"kernel vs plain on the card, u_span {u_span}: {len(jobs)} "
-             f"jobs, rep_len <= {r_pad}, {bad} mismatching")
+        n_jobs += len(jobs)
+        bad_total += bad
         check(bad == 0, f"kernel disagrees with the plain version "
-              f"(u_span {u_span})")
+              f"(C {u_span // 32}, {bad} of {len(jobs)} jobs)")
+    # every job of (a) again in one launch, as the batcher launches them:
+    # rows 512 wide, each job at its own C
+    jobs = sorted((j for js in by_span.values() for j in js),
+                  key=lambda j: -len(j[0]))
+    batch = make_batch(jobs, 512)
+    got = run_kernel(batch, 512)
+    flat, starts, scal, units = (torch.from_numpy(a).cuda() for a in batch)
+    want = wrap_dp_counts_plain(
+        scal, gather_segments(flat, starts, max(1, int(batch[2][:, 0].max()))),
+        units).cpu().numpy()
+    diff = np.abs(got[:, :11].astype(np.int64) - want[:, :11])
+    bad = int((diff.max(axis=1) > 0).sum())
+    worst = max(worst, int(diff.max()))
+    check(bad == 0, f"kernel disagrees with the plain version in one mixed "
+          f"launch ({bad} of {len(jobs)} jobs)")
+    info(f"kernel vs plain on the card: {n_jobs} jobs over C 1-16 (units "
+         f"{unit_lens[0]}-{unit_lens[-1]}), rep_len <= 2048, one launch "
+         f"per C and all in one launch, {bad_total + bad} mismatching")
 
-    # (b) against the native host engine at main-path sizes
-    sizes = ((100, 4096), (200, 32767), (200, 32768), (480, 20000),
-             (100, 262000))
+    # (b) against the native host engine at main-path sizes and past
+    # rep_len 32,768
+    sizes = ((1, 33000), (2, 40000), (100, 4096), (129, 32769),
+             (200, 32767), (200, 32768), (257, 33000), (400, 32768),
+             (480, 20000), (500, 9000), (100, 262000))
     jobs = []
     for ul, rl in sizes:
         unit = rng.integers(0, 4, ul).astype(np.int8)
@@ -241,7 +296,7 @@ def kernel_vs_references():
             jobs.append((periodic_rep(rng, unit, rl), unit, scheme))
     by_span = {}
     for q, job in enumerate(jobs):
-        by_span.setdefault(_u_span(len(job[1])), []).append(q)
+        by_span.setdefault(u_span_for(len(job[1])), []).append(q)
     got = np.zeros((len(jobs), 15), np.int32)
     for u_span, idx in by_span.items():
         got[idx] = run_kernel(make_batch([jobs[q] for q in idx], u_span),
@@ -271,10 +326,10 @@ def consensus_vs_references():
     import numpy as np
     import torch
 
-    from mtr_tpu import native
+    from mtr_tpu_torch import native
     from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
     from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
-    from mtr_tpu_torch.pipeline import _factor, _u_span
+    from mtr_tpu_torch.pipeline import _cons_span, _factor
 
     rng = np.random.default_rng(20241)
     worst = 0
@@ -294,7 +349,7 @@ def consensus_vs_references():
         for scheme in SCHEMES:
             unit = rng.integers(0, 4, ul).astype(np.int8)
             rl = int(rng.integers(ul, 2049))
-            by_span.setdefault(_u_span(ul), []).extend([
+            by_span.setdefault(_cons_span(ul), []).extend([
                 (periodic_rep(rng, unit, rl), unit, scheme),
                 (rng.integers(0, 4, int(rng.integers(1, 2049))).astype(
                     np.int8), unit, scheme),
@@ -326,9 +381,9 @@ def consensus_vs_references():
         for scheme in SCHEMES:
             jobs.append((periodic_rep(rng, unit, rl), unit, scheme))
     got = np.zeros((len(jobs), 500, 9), np.int32)
-    for u_span in sorted({_u_span(len(u)) for _, u, _ in jobs}):
+    for u_span in sorted({_cons_span(len(u)) for _, u, _ in jobs}):
         idx = [q for q, (_, u, _) in enumerate(jobs)
-               if _u_span(len(u)) == u_span]
+               if _cons_span(len(u)) == u_span]
         got[idx] = run([jobs[q] for q in idx], u_span)[0]
     orgs = [np.concatenate([[0], rep]).astype(np.int32)
             for rep, _, _ in jobs]
@@ -440,13 +495,13 @@ def canonical_walks(res, n):
 def bench_batch_queries(fasta):
     """The first batch of the bench set as run_file cuts it (host DI),
     and its wave-1 walk queries."""
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.io.fasta import iter_fasta
-    from mtr_tpu.oracle.arena import Arena
-    from mtr_tpu.oracle.directional_index import (
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.io.fasta import iter_fasta
+    from mtr_tpu_torch.oracle.arena import Arena
+    from mtr_tpu_torch.oracle.directional_index import (
         fill_directional_index_with_end,
     )
-    from mtr_tpu.pipeline import ReadState, _collect_queries
+    from mtr_tpu_torch.pipeline import ReadState, _collect_queries
 
     cfg = MTRConfig(backend="device")
     arena = Arena(cfg.max_input_length)
@@ -473,7 +528,7 @@ def walk_vs_references(fasta):
     import numpy as np
     import torch
 
-    from mtr_tpu import native
+    from mtr_tpu_torch import native
     from mtr_tpu_torch.ops import dbg_device as dw
 
     rng = np.random.default_rng(20242)
@@ -523,95 +578,116 @@ def walk_vs_references(fasta):
 
 
 def timer_snapshot():
-    from mtr_tpu.utils.timers import TIMERS
+    from mtr_tpu_torch.utils.timers import TIMERS
 
     return dict(TIMERS.t)
 
 
 def timer_delta(before):
-    from mtr_tpu.utils.timers import TIMERS
+    from mtr_tpu_torch.utils.timers import TIMERS
 
     return {k: v - before.get(k, 0.0) for k, v in TIMERS.t.items()
             if v - before.get(k, 0.0) > 0}
 
 
 def counter_delta(before):
-    from mtr_tpu.utils.timers import TIMERS
+    from mtr_tpu_torch.utils.timers import TIMERS
 
     return {k: v - before.get(k, 0) for k, v in TIMERS.counters.items()}
 
 
+def first_difference(got: str, want: str) -> str:
+    """The first line where got and want differ, for the failure text."""
+    g, w = got.splitlines(), want.splitlines()
+    for n, (x, y) in enumerate(zip(g, w)):
+        if x != y:
+            return f"line {n + 1}: got {x!r}, want {y!r}"
+    return (f"line {min(len(g), len(w)) + 1}: got {len(g)} lines, want "
+            f"{len(w)}")
+
+
+def same_as_golden(got: str, golden: str, what: str) -> None:
+    if got != golden:
+        diff = first_difference(got, golden)
+        info(f"{what}: differs from the golden at {diff}")
+        raise SmokeFailure(f"{what} differs from the golden ({diff})")
+
+
+def read_golden(name):
+    with open(os.path.join(HERE, "tests", "golden", name)) as f:
+        return f.read()
+
+
 def main_path(tmp):
-    """The port's hybrid on the bench set vs mtr_tpu's host backend."""
+    """Phase 3: the port's hybrid on the bench set and the 100x10 set, and
+    the port's host backend on the bench set, each against its golden
+    (tests/golden/bench_200x200.out: mtr_tpu's host backend on this set)."""
     import io
 
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.pipeline import run_file as host_run_file
-    from mtr_tpu.testutil.rand_seq import write_fasta
-    from mtr_tpu_torch.ops import wrap_dp_counts as op
+    from mtr_tpu_torch.config import MTRConfig
     from mtr_tpu_torch.pipeline import make_batcher, run_file
+    from mtr_tpu_torch.testutil.rand_seq import write_fasta
 
     fasta = os.path.join(tmp, "bench_200x200.fasta")
     n_reads = BENCH_READS
     t0 = time.perf_counter()
-    write_fasta(fasta, fasta[:-6] + ".units", 200, 200, 9.7, 2.9, 7.5,
-                40000, 40000, n_reads, seed=20200)
+    write_fasta(fasta, fasta[:-6] + ".units", *BENCH_ARGS, seed=20200)
     info(f"bench set: {n_reads} reads, {os.path.getsize(fasta)} bytes, "
          f"generated in {time.perf_counter() - t0:.1f} s")
+    golden = read_golden("bench_200x200.out")
 
     cfg = MTRConfig(backend="hybrid")
     batcher = make_batcher(cfg)
-    op.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     port_out = io.StringIO()
     run_file(fasta, cfg, port_out, batcher=batcher)
     dt_port = time.perf_counter() - t0
-    launches = op.LAUNCHES
+    launches = read_counts()["counts"]
 
     t0 = time.perf_counter()
     host_out = io.StringIO()
-    host_run_file(fasta, MTRConfig(backend="host"), host_out)
+    run_file(fasta, MTRConfig(backend="host"), host_out)
     dt_host = time.perf_counter() - t0
 
     dev, host = batcher.device.cells, batcher.host_cells
     n_lines = port_out.getvalue().count("\n")
     info(f"bench set, port hybrid: {dt_port:.3f} s, "
          f"{n_reads / dt_port:.3f} reads/s, {n_lines} records, "
-         f"{launches} kernel launches")
-    info(f"bench set, mtr_tpu host: {dt_host:.3f} s, "
-         f"{n_reads / dt_host:.3f} reads/s")
+         f"{launches} counts-kernel launches")
+    info(f"bench set, port host backend (this machine's CPU): "
+         f"{dt_host:.3f} s, {n_reads / dt_host:.3f} reads/s")
     info(f"bench set, counts DP cells: device {dev}, host {host}, "
          f"device share {dev / max(dev + host, 1):.4f}")
-    check(port_out.getvalue() == host_out.getvalue(),
-          "port hybrid output differs from mtr_tpu host output")
+    same_as_golden(host_out.getvalue(), golden, "port host backend")
+    same_as_golden(port_out.getvalue(), golden, "port hybrid")
     check(n_lines > 0, "no records on the bench set")
-    check(launches > 0, "the main path launched no kernel")
+    check(launches > 0, "the main path launched no counts kernel")
     check(dev > 0, "the device leg computed no DP cell")
 
-    golden = os.path.join(HERE, "tests", "golden", "multi20_100x10")
+    golden_100 = os.path.join(HERE, "tests", "golden", "multi20_100x10")
     cfg = MTRConfig(backend="hybrid")
     batcher = make_batcher(cfg)
     t0 = time.perf_counter()
     out = io.StringIO()
-    run_file(golden + ".fasta", cfg, out, batcher=batcher)
+    run_file(golden_100 + ".fasta", cfg, out, batcher=batcher)
     dt = time.perf_counter() - t0
-    with open(golden + ".out") as f:
-        check(out.getvalue() == f.read(),
-              "port hybrid output differs from the 100x10 golden")
-    with open(golden + ".fasta") as f:
+    same_as_golden(out.getvalue(), read_golden("multi20_100x10.out"),
+                   "port hybrid, 100x10 set")
+    with open(golden_100 + ".fasta") as f:
         n_golden = sum(line.startswith(">") for line in f)
     info(f"100x10 golden, port hybrid: identical, {dt:.3f} s, "
          f"{n_golden / dt:.1f} reads/s ({n_golden} reads), device cells "
          f"{batcher.device.cells}")
-    return fasta, host_out.getvalue(), n_reads / dt_port, n_reads / dt_host
+    return fasta, golden, n_reads / dt_port, n_reads / dt_host, launches
 
 
-def device_path(fasta, host_out, hybrid_rate, host_rate):
+def device_path(fasta, golden, hybrid_rate, host_rate):
     """Phase 3b: run_file under backend "device" with the walks on the host
     on the bench set vs mtr_tpu's host output."""
     import io
 
-    from mtr_tpu.config import MTRConfig
+    from mtr_tpu_torch.config import MTRConfig
     from mtr_tpu_torch.pipeline import make_batcher, run_file
 
     cfg = MTRConfig(backend="device", use_device_walks=False)
@@ -625,7 +701,7 @@ def device_path(fasta, host_out, hybrid_rate, host_rate):
     launches = read_counts()
     spent = timer_delta(before)
     info(f"bench set, port device: {dt:.3f} s, {BENCH_READS / dt:.3f} reads/s "
-         f"(port hybrid {hybrid_rate:.3f}, mtr_tpu host {host_rate:.3f} "
+         f"(port hybrid {hybrid_rate:.3f}, port host {host_rate:.3f} "
          f"reads/s)")
     info(f"bench set, port device: {launches['counts']} counts launches, "
          f"{launches['consensus']} consensus launches, {launches['di']} "
@@ -636,8 +712,7 @@ def device_path(fasta, host_out, hybrid_rate, host_rate):
          f" (ranges stage {spent.get('range', 0.0):.3f})")
     info("bench set, port device, stage seconds (threads overlap): "
          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spent.items())))
-    check(out.getvalue() == host_out,
-          "port device output differs from mtr_tpu host output")
+    same_as_golden(out.getvalue(), golden, "port device (host walks)")
     for name in ("counts", "consensus", "di"):
         check(launches[name] > 0, f"the device path ran no {name} launch")
     check(launches["dbg_walk"] == 0, "use_device_walks=False walked on the "
@@ -665,14 +740,14 @@ def read_counts():
             "di": di.CALLS}
 
 
-def device_walk_path(fasta, host_out):
+def device_walk_path(fasta, golden):
     """Phase 3c: run_file under backend "device" with the DBG walks on the
     card, on the bench set and the 100x10 golden, then the CLI; returns
     the launch counts of the bench run."""
     import io
 
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.utils.timers import TIMERS
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.utils.timers import TIMERS
     from mtr_tpu_torch.pipeline import make_batcher, run_file
 
     cfg = MTRConfig(backend="device")
@@ -702,20 +777,17 @@ def device_walk_path(fasta, host_out):
          f"{launches['di']} device-DI passes")
     info("bench set, device walks, stage seconds (threads overlap): "
          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spent.items())))
-    check(out.getvalue() == host_out,
-          "port device output (device walks) differs from mtr_tpu host")
+    same_as_golden(out.getvalue(), golden, "port device (device walks)")
     for name in ("counts", "consensus", "dbg_walk", "stage_a", "di"):
         check(launches[name] > 0, f"the device path ran no {name} launch")
 
-    golden = os.path.join(HERE, "tests", "golden", "multi20_100x10")
+    golden_100 = os.path.join(HERE, "tests", "golden", "multi20_100x10")
     t0 = time.perf_counter()
     out = io.StringIO()
-    run_file(golden + ".fasta", cfg, out, batcher=make_batcher(cfg))
+    run_file(golden_100 + ".fasta", cfg, out, batcher=make_batcher(cfg))
     dt = time.perf_counter() - t0
-    with open(golden + ".out") as f:
-        check(out.getvalue() == f.read(),
-              "port device output (device walks) differs from the 100x10 "
-              "golden")
+    same_as_golden(out.getvalue(), read_golden("multi20_100x10.out"),
+                   "port device (device walks), 100x10 set")
     info(f"100x10 golden, port device with device walks: identical, "
          f"{dt:.3f} s")
 
@@ -727,16 +799,16 @@ def device_walk_path(fasta, host_out):
     info(f"CLI --backend device on the bench set: exit {r.returncode}, "
          f"{dt:.3f} s in a new process")
     check(r.returncode == 0, f"the CLI failed: {r.stderr[-2000:]}")
-    check(r.stdout == host_out, "the CLI's stdout differs from mtr_tpu host")
+    same_as_golden(r.stdout, golden, "CLI --backend device")
     return launches
 
 
-def prefilter_path(fasta, host_out):
+def prefilter_path(fasta, golden):
     """Phase 3d: the port's hybrid with MTR_TPU_MF_FILTER=1."""
     import io
 
-    from mtr_tpu.config import MTRConfig
-    from mtr_tpu.utils.timers import TIMERS
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.utils.timers import TIMERS
     from mtr_tpu_torch.pipeline import make_batcher, run_file
 
     cfg = MTRConfig(backend="hybrid")
@@ -755,8 +827,7 @@ def prefilter_path(fasta, host_out):
     info(f"bench set, port hybrid with MTR_TPU_MF_FILTER=1: {dt:.3f} s, "
          f"{BENCH_READS / dt:.3f} reads/s; {n_out} of {n_q} walk queries "
          f"filtered out on the card ({n_out / max(n_q, 1):.4f})")
-    check(out.getvalue() == host_out,
-          "port hybrid with the walk pre-filter differs from mtr_tpu host")
+    same_as_golden(out.getvalue(), golden, "port hybrid with the pre-filter")
     check(n_out > 0, "the pre-filter filtered no query")
 
 
@@ -776,47 +847,174 @@ def elapsed_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def time_kernel():
-    """CUDA-event times at the bench's GCUPS shapes (bench.py:395-397)."""
-    import numpy as np
+# bounds: an H100 SXM at its 700 W limit does 132 SMs x 64 int32 lanes x
+# 1.98 GHz int32 operations a second (half its 128 fp32 lanes an SM), and
+# moves 3.35 TB/s of device memory (NVIDIA's data sheet)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+# int32 operations a cell of the counts DP needs: the recurrence, the
+# traceback precedence and the three payloads carried through the fill
+COUNTS_OPS_PER_CELL = 30
+
+
+def bound_ms(ops, n_bytes):
+    """(least time in ms, "operations" or "bytes") for ops int32
+    operations and n_bytes of device memory traffic."""
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def counts_bound(scal):
+    """The counts kernel's bound on these jobs: cells x ops a cell, and
+    the rep codes, units, scal and output rows moved once."""
+    rep_len, unit_len = scal[:, 0].astype(np.int64), scal[:, 1]
+    cells = int((rep_len * unit_len).sum())
+    n_bytes = int(rep_len.sum() + unit_len.sum()) + len(scal) * (8 + 15) * 4
+    return (*bound_ms(cells * COUNTS_OPS_PER_CELL, n_bytes), cells)
+
+
+def block_counts(lib):
+    """The first design (csrc/wrap_dp_counts_block.cu) behind
+    wrap_dp_counts' signature: unit rows padded to its span 128/256/512."""
+    import ctypes
+
     import torch
 
+    def run(flat, starts, scal, unit, u_span):
+        span = next(s for s in (128, 256, 512) if s >= u_span)
+        unit = torch.nn.functional.pad(unit, (0, span - u_span), value=-2)
+        out = torch.empty((scal.shape[0], 15), dtype=torch.int32,
+                          device=flat.device)
+        max_rep = scal[:, 0].amax().reshape(1)
+        err = lib.mtr_wrap_dp_counts_block(
+            span, flat.data_ptr(), starts.data_ptr(), scal.data_ptr(),
+            unit.contiguous().data_ptr(), max_rep.data_ptr(), out.data_ptr(),
+            scal.shape[0],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        check(err == 0, f"the first-design counts kernel failed: {err}")
+        return out
+
+    return run
+
+
+def time_kernel():
+    """Phase 4: CUDA-event times of the counts kernel and of its first
+    design, in turns (old, new, new, old), at the bench's GCUPS shapes
+    (bench.py:395-397) and at unit 400; the plain version at the first."""
+    import torch
+
+    from mtr_tpu_torch.ops import _build
     from mtr_tpu_torch.ops.wrap_dp_counts import (
+        u_span_for,
         wrap_dp_counts,
         wrap_dp_counts_plain,
     )
     from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
 
     rng = np.random.default_rng(395)
+    old = block_counts(_build.baseline_library())
+    info(f"timing on: {card_line()}")
 
     def inputs(b, ul, rl, u_span):
         unit = rng.integers(0, 4, ul).astype(np.int8)
         rep = periodic_rep(rng, unit, rl + b)
         flat = np.lib.stride_tricks.sliding_window_view(rep, rl)[:b]
         jobs = [(flat[q], unit, (1, 1, 3)) for q in range(b)]
-        return [torch.from_numpy(a).cuda() for a in make_batch(jobs, u_span)]
+        return make_batch(jobs, u_span)
 
     res = {}
-    for b, ul, rl, u_span, n in ((2048, 100, 4096, 128, 5),
-                                 (1024, 200, 32768, 256, 2)):
-        args = inputs(b, ul, rl, u_span)
-        ms = elapsed_ms(lambda: wrap_dp_counts(*args, u_span), n)
-        gcups = b * ul * rl / (ms * 1e-3) / 1e9
-        info(f"kernel, unit {ul} x rep_len {rl} x {b} jobs (u_span "
-             f"{u_span}): {ms:.3f} ms/launch, {gcups:.2f} GCUPS")
-        res[ul] = (ms, args)
-    ms, args = res[100]
-    flat, starts, scal, units = args
+    for b, ul, rl, n in ((2048, 100, 4096, 5), (1024, 200, 32768, 2),
+                         (256, 400, 32768, 2)):
+        u_span = u_span_for(ul)
+        batch = inputs(b, ul, rl, u_span)
+        args = [torch.from_numpy(a).cuda() for a in batch]
+        got_new = wrap_dp_counts(*args, u_span)
+        got_old = old(*args, u_span)
+        torch.cuda.synchronize()
+        check(torch.equal(got_new[:, :11], got_old[:, :11]),
+              f"old and new counts kernels disagree at unit {ul}")
+        t_old = [elapsed_ms(lambda: old(*args, u_span), n)]
+        t_new = [elapsed_ms(lambda: wrap_dp_counts(*args, u_span), n)]
+        t_new.append(elapsed_ms(lambda: wrap_dp_counts(*args, u_span), n))
+        t_old.append(elapsed_ms(lambda: old(*args, u_span), n))
+        ms, ms_old = min(t_new), min(t_old)
+        bms, by, cells = counts_bound(batch[2])
+        info(f"counts kernel, unit {ul} x rep_len {rl} x {b} jobs (C "
+             f"{u_span // 32}): {ms:.3f} ms/launch ({t_new[0]:.3f}, "
+             f"{t_new[1]:.3f}), {cells / ms / 1e6:.2f} GCUPS; first design "
+             f"{ms_old:.3f} ms ({t_old[0]:.3f}, {t_old[1]:.3f}), "
+             f"{cells / ms_old / 1e6:.2f} GCUPS; bound {bms:.3f} ms "
+             f"({by}), share of bound {bms / ms:.3f}")
+        res[ul] = dict(ms=ms, ms_before=ms_old, bound_ms=bms, bound_by=by,
+                       args=args, u_span=u_span)
+    r = res[100]
+    flat, starts, scal, units = r["args"]
 
     def plain():
         rep = gather_segments(flat, starts, 4096)
-        return wrap_dp_counts_plain(scal, rep, units)
+        unit = torch.nn.functional.pad(units, (0, 128 - r["u_span"]),
+                                       value=-2)
+        return wrap_dp_counts_plain(scal, rep, unit)
 
     plain_ms = elapsed_ms(plain, 1)
     info(f"plain version on the card, unit 100 x rep_len 4096 x 2048 jobs: "
-         f"{plain_ms:.1f} ms/call, kernel {ms:.3f} ms "
-         f"({plain_ms / ms:.0f}x)")
-    return ms, plain_ms
+         f"{plain_ms:.1f} ms/call, kernel {r['ms']:.3f} ms "
+         f"({plain_ms / r['ms']:.0f}x)")
+    return res, plain_ms
+
+
+def hybrid_profile(fasta, golden):
+    """Phase 4d: the hybrid's bench run under torch.profiler, once with
+    the counts kernel and once with its first design swapped in: total
+    counts-kernel device ms, launches, jobs per launch, longest rep_len
+    per launch; both outputs equal the golden."""
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mtr_tpu_torch import pipeline as tp
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.ops import _build
+
+    real = tp.wrap_dp_counts
+    out = {}
+    for name, op in (("kernel", real),
+                     ("first design",
+                      block_counts(_build.baseline_library()))):
+        shapes = []
+
+        def spy(flat, starts, scal, unit, u_span, _op=op):
+            shapes.append((scal.shape[0], int(scal[:, 0].amax()),
+                           u_span // 32))
+            return _op(flat, starts, scal, unit, u_span)
+
+        tp.wrap_dp_counts = spy
+        try:
+            cfg = MTRConfig(backend="hybrid")
+            text = io.StringIO()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tp.run_file(fasta, cfg, text, batcher=tp.make_batcher(cfg))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        finally:
+            tp.wrap_dp_counts = real
+        same_as_golden(text.getvalue(), golden,
+                       f"port hybrid ({name}, profiled)")
+        dev_us = 0.0
+        for evt in prof.key_averages():
+            if "wrap_dp_counts" in evt.key:
+                dev_us += getattr(evt, "device_time_total",
+                                  getattr(evt, "cuda_time_total", 0.0))
+        out[name] = dev_us / 1e3
+        info(f"bench run, hybrid with the counts {name} (profiled): "
+             f"{dt:.3f} s, counts-kernel device time {dev_us / 1e3:.3f} ms "
+             f"over {len(shapes)} launches; (jobs, longest rep_len, largest "
+             f"C) a launch: {shapes}")
+    return out
 
 
 def time_consensus():
@@ -825,7 +1023,7 @@ def time_consensus():
     import numpy as np
     import torch
 
-    from mtr_tpu import native
+    from mtr_tpu_torch import native
     from mtr_tpu_torch.ops import wrap_dp_consensus as cop
     from mtr_tpu_torch.ops.directional_index import make_di_compute
     from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
@@ -854,13 +1052,21 @@ def time_consensus():
     rl = 1024
     args = inputs(b, rl)
     small_ms = elapsed_ms(full(args), 3)
+    # bound: the fill's recurrence and move code (~20 int32 operations a
+    # cell) and the traceback's walk (~10 a step, rep_len + unit_len steps
+    # a job); bytes: the rep codes read and the (B, 500, 9) blocks written
+    ops = b * (200 * rl * 20 + (rl + 200) * 10)
+    bms, by = bound_ms(ops, b * rl + b * 500 * 9 * 4)
+    info(f"consensus kernel, unit 200 x rep_len {rl} x {b} jobs: "
+         f"{small_ms:.3f} ms/launch, bound {bms:.3f} ms ({by}), share of "
+         f"bound {bms / small_ms:.3f}")
     plain_ms = elapsed_ms(lambda: consensus_resident_plain(*args, 6), 1)
     info(f"consensus plain version on the card, unit 200 x rep_len {rl} x "
          f"{b} jobs: {plain_ms:.1f} ms/call, kernel {small_ms:.3f} ms "
          f"({plain_ms / small_ms:.0f}x)")
 
     # one Manhattan DI pass at the 131,072 position bucket, k = 5, w = 640
-    from mtr_tpu.utils.encoding import rolling_kmer_codes
+    from mtr_tpu_torch.utils.encoding import rolling_kmer_codes
 
     L, rsl, w, k = 100000, 10000, 640, 5
     di_len = L + 2 * rsl
@@ -884,7 +1090,7 @@ def time_consensus():
     info(f"device DI pass (Manhattan, 131,072 bucket, k {k}, w {w}): "
          f"{di_ms:.3f} ms/call incl. copies (host clock); native host "
          f"sliding L1 {host_ms:.3f} ms")
-    return small_ms, plain_ms
+    return small_ms, plain_ms, bms, by
 
 
 def time_walk(bench):
@@ -904,11 +1110,21 @@ def time_walk(bench):
          f"{job[0].shape[0]} jobs): {ms:.3f} ms/launch")
     sub = [a[:512] for a in job]
     sub_ms = elapsed_ms(lambda: dw.dbg_walk(sv, adj, *sub), 3)
+    # bound by bytes only: the tables and job rows read once, the results
+    # written once (the operations of a walk depend on its path and are
+    # not counted, so this is a floor under the true bound)
+    outs = dw.dbg_walk(sv, adj, *sub)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (sv, adj, *sub, *outs))
+    bms, by = bound_ms(0, n_bytes)
+    info(f"walk kernel, first {sub[0].shape[0]} jobs: {sub_ms:.3f} ms, "
+         f"bound {bms:.4f} ms ({by}: {n_bytes} bytes), share of bound "
+         f"{bms / sub_ms:.4f}")
     plain_ms = elapsed_ms(lambda: dw.stage_b_plain(sv, adj, *sub), 1)
     info(f"walk plain version on the card, first {sub[0].shape[0]} of those "
          f"jobs: {plain_ms:.1f} ms/call, kernel {sub_ms:.3f} ms "
          f"({plain_ms / sub_ms:.0f}x)")
-    return sub_ms, plain_ms
+    return sub_ms, plain_ms, bms, by
 
 
 def main() -> int:
@@ -928,28 +1144,42 @@ def main() -> int:
         build_dir = os.path.join(HERE, "build")
         os.makedirs(build_dir, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-            fasta, host_out, hybrid_rate, host_rate = main_path(tmp)
+            fasta, golden, hybrid_rate, host_rate, counts_launches = (
+                main_path(tmp))
             walk_worst, walk_bad, bench = walk_vs_references(fasta)
-            device_path(fasta, host_out, hybrid_rate, host_rate)
-            launches = device_walk_path(fasta, host_out)
-            prefilter_path(fasta, host_out)
-        ms, plain_ms = time_kernel()
-        cons_ms, cons_plain_ms = time_consensus()
-        walk_ms, walk_plain_ms = time_walk(bench)
+            device_path(fasta, golden, hybrid_rate, host_rate)
+            launches = device_walk_path(fasta, golden)
+            prefilter_path(fasta, golden)
+            counts, plain_ms = time_kernel()
+            profiled = hybrid_profile(fasta, golden)
+        cons_ms, cons_plain_ms, cons_bound, cons_by = time_consensus()
+        walk_ms, walk_plain_ms, walk_bound, walk_by = time_walk(bench)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     info(f"chip_smoke: all phases passed in "
          f"{time.perf_counter() - t_all:.1f} s")
+    c200 = counts[200]
+    # no single PyTorch call computes any of these functions: library_ms
+    # is null
     print(json.dumps({"kernels": [{
         "name": "wrap_dp_counts",
         "route": "cuda",
         "source": "mtr_tpu_torch/csrc/wrap_dp_counts.cu",
         "replaces": REPLACES,
-        "launches": launches["counts"],
+        "launches": counts_launches,
         "max_abs_err": worst,
-        "ms": ms,
+        "ms": c200["ms"],
         "plain_ms": plain_ms,
+        "bound_ms": c200["bound_ms"],
+        "bound_by": c200["bound_by"],
+        "library_ms": None,
+        "ms_before": c200["ms_before"],
+        "shape": "unit 200 x rep_len 32768 x 1024 jobs",
+        "ms_at_unit_100": counts[100]["ms"],
+        "ms_at_unit_400": counts[400]["ms"],
+        "hybrid_run_kernel_ms": profiled["kernel"],
+        "hybrid_run_kernel_ms_before": profiled["first design"],
     }, {
         "name": "wrap_dp_consensus",
         "route": "cuda",
@@ -959,6 +1189,9 @@ def main() -> int:
         "max_abs_err": cons_worst,
         "ms": cons_ms,
         "plain_ms": cons_plain_ms,
+        "bound_ms": cons_bound,
+        "bound_by": cons_by,
+        "library_ms": None,
     }, {
         "name": "dbg_walk",
         "route": "cuda",
@@ -969,6 +1202,9 @@ def main() -> int:
         "mismatches": walk_bad,
         "ms": walk_ms,
         "plain_ms": walk_plain_ms,
+        "bound_ms": walk_bound,
+        "bound_by": walk_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

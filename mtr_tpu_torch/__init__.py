@@ -1,15 +1,22 @@
 """mtr_tpu_torch — the PyTorch and CUDA port of mtr_tpu.
 
-Same detection, same output: the host stages (DI pairing, the native
-walk and DP engines, polish, chaining) are mtr_tpu's own modules, imported
-as they stand; this package owns the device leg, which runs on an NVIDIA
-Hopper card through kernels written by hand in CUDA C++.  It imports
-torch and never jax.
+Same detection, same output.  The package stands alone: it keeps its own
+copies of mtr_tpu's host stages (config, records, FASTA reading, the
+oracle, chaining, the clustering stage, the bench-set generator) under
+the same module names, its own binding to the C++ host engine
+(native.py, built from native/mtr_host.cpp into its own directory), and
+the device leg, which runs on an NVIDIA Hopper card through kernels
+written by hand in CUDA C++.  It imports torch, and nothing of jax or of
+mtr_tpu.
 
 Layering (top to bottom):
   cli        — mTR-compatible command line
-  pipeline   — torch DP batcher, hybrid host/device engine, walk stage and
-               wave loop, per-file main loop
+  pipeline   — host DP batcher, torch DP batcher, hybrid host/device
+               engine, walk stage and wave loop, per-file main loop
+  clustering — cross-read unit clustering (--cluster), near matrix on torch
+  native     — ctypes binding to the C++ host engine
+  oracle/, chaining, records, config, io/, utils/, pretty, testutil/
+             — copies of mtr_tpu's host modules
   ops/       — the device ops (wrap-around DP in counts and consensus
                mode, DBG walks, walk pre-filter, DI) with their plain
                PyTorch versions, and the kernels' build and binding
@@ -18,7 +25,7 @@ Layering (top to bottom):
 
 __version__ = "0.1.0"
 
-from mtr_tpu.config import MTRConfig  # noqa: F401
+from mtr_tpu_torch.config import MTRConfig  # noqa: F401
 
 
 def find_repeats(sequences, config: "MTRConfig | None" = None):

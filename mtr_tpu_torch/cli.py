@@ -6,8 +6,9 @@ mtr_tpu/cli.py, main.c:40-123).
 --backend: oracle (bit-exact NumPy path), host (native C++ DP engine),
 hybrid (host engine + torch DP kernels on the CUDA card), device (every
 DP job, long-read DI and the DBG walks on the card: mtr_tpu's default
-device configuration), auto (hybrid where a card is present, else host).
-hybrid and device exit 1 where torch finds no CUDA card.
+device configuration), auto (the default: hybrid).  auto, hybrid and
+device need a CUDA card and exit 1 where torch finds none; the CPU is
+reached only by asking for host or oracle.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import sys
 import time
 
-from mtr_tpu.config import MTRConfig
+from mtr_tpu_torch.config import MTRConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,10 +40,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "stage (legacy phase 2) and print '#CLUSTER repID "
                         "groupFreq unit' lines to stdout")
     p.add_argument("--backend", choices=["oracle", "device", "host", "hybrid", "auto"], default="auto",
-                   help="oracle = bit-exact NumPy path; host = native C++ DP engine; "
-                        "hybrid = host engine + CUDA DP kernels; auto = hybrid when a CUDA "
-                        "card is present; device = every DP job, DI and the DBG walks on "
-                        "the card.")
+                   help="oracle = bit-exact NumPy path (CPU); host = native C++ DP "
+                        "engine (CPU); hybrid = host engine + CUDA DP kernels; auto = "
+                        "hybrid; device = every DP job, DI and the DBG walks on the "
+                        "card.  auto, hybrid and device need a CUDA card.")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="resume file: skips reads already emitted by a previous run.")
     p.add_argument("--no-strict", action="store_false", dest="strict",
@@ -72,14 +73,14 @@ def main(argv=None) -> int:
         return 1
     t0 = time.time()
     out = sys.stdout
-    from mtr_tpu.io.fasta import FatalInputError
-    from mtr_tpu.utils.encoding import InvalidBaseError
+    from mtr_tpu_torch.io.fasta import FatalInputError
+    from mtr_tpu_torch.utils.encoding import InvalidBaseError
     from mtr_tpu_torch.pipeline import BackendUnavailable
 
     try:
         collected = [] if args.cluster else None
         if cfg.backend == "oracle":
-            from mtr_tpu.oracle.pipeline import run_file_oracle
+            from mtr_tpu_torch.oracle.pipeline import run_file_oracle
 
             for _read, records in run_file_oracle(args.fasta, cfg):
                 for rec in records:
@@ -87,7 +88,7 @@ def main(argv=None) -> int:
                     if collected is not None:
                         collected.append(rec)
                     if cfg.print_alignment:
-                        from mtr_tpu.pretty import pretty_print_alignment
+                        from mtr_tpu_torch.pretty import pretty_print_alignment
                         out.write("\n")
                         pretty_print_alignment(_read.codes, rec, out)
                 out.flush()
@@ -98,9 +99,11 @@ def main(argv=None) -> int:
                      strict=args.strict,
                      record_sink=collected.append if args.cluster else None)
         if args.cluster:
-            from mtr_tpu.clustering import cluster_repeats
+            from mtr_tpu_torch.clustering import cluster_repeats
 
-            for c in cluster_repeats(collected, cfg.min_match_ratio):
+            device = "cpu" if cfg.backend in ("host", "oracle") else "cuda"
+            for c in cluster_repeats(collected, cfg.min_match_ratio,
+                                     device=device):
                 out.write(
                     f"#CLUSTER\t{c.rep_id}\t{c.group_freq}\t"
                     f"{c.record.read_id}\t{c.record.string}\n"
@@ -111,7 +114,7 @@ def main(argv=None) -> int:
         print(str(e), file=sys.stderr)
         return 1
     if cfg.print_computation_time:
-        from mtr_tpu.utils.timers import TIMERS
+        from mtr_tpu_torch.utils.timers import TIMERS
 
         TIMERS.add("all", time.time() - t0)
         TIMERS.print_summary(sys.stderr)

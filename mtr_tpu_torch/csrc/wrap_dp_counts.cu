@@ -2,51 +2,59 @@
 // counts of wrap_around_DP.c:222-354, one (B, 15) int32 row per job.
 //
 // Replaces the three Pallas TPU kernels that compute this function:
-//   mtr_tpu/ops/wrap_dp_fused2.py::_fused2_kernel    units <= 128  (U_SPAN 128)
-//   mtr_tpu/ops/wrap_dp_fused2w.py::_fused2w_kernel  units 129-256 (U_SPAN 256)
-//   mtr_tpu/ops/wrap_dp_fused.py::_fused_kernel      units 257-500 (U_SPAN 512)
-// They differ only in how they work around TPU limits (the 128-lane
-// gather, sublane vs lane layout, int32 payload packing); none of those
-// limits exists here, so one template stands for all three and payloads
-// stay unpacked int32.  The plain PyTorch statement of the same function
+//   mtr_tpu/ops/wrap_dp_fused2.py::_fused2_kernel    units <= 128
+//   mtr_tpu/ops/wrap_dp_fused2w.py::_fused2w_kernel  units 129-256
+//   mtr_tpu/ops/wrap_dp_fused.py::_fused_kernel      units 257-500
+// They differ only in how they work around TPU limits; one template
+// stands for all three.  The plain PyTorch statement of the same function
 // is mtr_tpu_torch/ops/wrap_dp_counts.py::wrap_dp_counts_plain.
 //
-// Design: one thread block per job, one thread per unit column j.  The
-// DP rows are strictly sequential (row i reads row i-1, and the in-row
-// deletion chain and the aux copy are prefix scans across the row), so a
-// job is bound by the LATENCY of one row: three block barriers, a warp
-// shuffle scan and a few shared-memory reads.  Throughput comes from many
-// jobs in flight (several blocks per SM); the batcher launches its
-// longest jobs first so they do not start last.  Per row:
-//   A  match / diag / insertion candidates; the deletion chain
-//      D[i][j] = max(m_j, D[i][j-1] - ip) (reset at match cells and
-//      j == 0) as a segmented inclusive max scan of m + ip*j: warp
-//      __shfl_up_sync, then one shared-memory pass across warps;
-//   B  publish the row; read the previous row's aux payloads;
-//   C  traceback precedence match > mismatch > deletion > insertion on
-//      final values selects each cell's aux base (m, ins, si);
-//      deletion cells copy the payload of their nearest non-deletion
-//      origin to the left, found with one ballot per warp; cells whose
-//      whole prefix is deletions take the last lane's origin (the wrap);
-//   D  gather the payloads from shared memory; per-thread argmax with a
-//      strict > (first row wins).
-// A block reduction resolves the argmax row-major-first at the end: max
-// value, then smallest row, then smallest lane.
+// What bounds it: operations.  A cell needs about 30 int32 operations
+// (the recurrence, the traceback precedence and three payloads carried
+// through the fill); bytes are one rep code per row.  An H100 SXM does
+// 132 SMs x 64 int32 lanes x 1.98 GHz = 16.7 T int32 operations/s, so
+// its bound is ~550 G cells/s.  The rows of a job are strictly
+// sequential, so a launch also lasts at least its longest job's rows
+// times the latency of one row.
 //
-// Rep codes are read straight from the batch's resident flat reads at
-// flat[start + i], staged U_SPAN codes at a time in shared memory.
-// Bounds (checked by the dispatcher): rep_len <= 2^20, unit_len <= U_SPAN,
-// rep_len*mg + ip*U_SPAN < 2^31, start + rep_len <= len(flat), ip >= 1.
-// The kernel allocates nothing and launches on the caller's stream.
+// Design: one warp per job (one warp a block), no shared memory and no
+// barrier.  Lane l holds unit columns l*C .. l*C+C-1 in registers,
+// C = ceil(unit_len/32) a template parameter (1..16) chosen per job inside
+// one launch, so a batch's jobs of every unit width run side by side.
+// Per row:
+//   - the rep code: each lane loads one code of the next 32 rows, one
+//     coalesced read, and __shfl_sync hands row r's code to all lanes;
+//   - diag: the lane's own registers, one __shfl_up_sync for its first
+//     column, and column U-1 (the wrap) kept from the previous row;
+//   - the deletion chain D[j] = max(m_j, D[j-1] - ip), reset at match
+//     cells and j == 0: a serial running max inside the lane (DPX
+//     __viaddmax_s32), one segmented max scan over the 32 lane tails
+//     (one shuffle a step: a lane takes its neighbour only while the
+//     neighbour lies in its own segment, found by ballot and __clz), then
+//     the lane's chain again from the carried value;
+//   - one pass over the lane's columns: traceback precedence match >
+//     mismatch > deletion > insertion on final values, each cell's base
+//     of the aux payloads (m, ins, si), and the copy of that base from the
+//     nearest non-deletion origin to the left; then one ballot + __clz +
+//     shuffle carries the origin across lanes;
+//     cells whose whole prefix is deletions take column U-1's value (the
+//     wrap), in a warp-uniform fix-up that runs only when such cells
+//     exist;
+//   - the argmax per lane in registers with a strict > (DPX
+//     __vibmax_s32), first row and first column win.
+// A warp reduction resolves the argmax row-major-first at the end.
+//
+// Bounds (checked by the dispatcher): rep_len <= 2^20, unit_len <= 32*C,
+// rep_len*mg + ip*32*C < 2^31 (the scan carries D[j] + ip*j),
+// start + rep_len <= len(flat), ip >= 1.  The kernel allocates nothing
+// and launches on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "wrap_dp_rows.cuh"
-
 namespace {
 
-using mtr::kFull;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -54,150 +62,261 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return q;
 }
 
-// Highest k' <= k whose non-deletion bit is set in the per-warp ballots,
-// or -1 when the whole prefix [0, k] is deletions.
-__device__ __forceinline__ int origin_of(int k, const unsigned* ball) {
-  int w = k >> 5;
-  unsigned msk = ball[w] & ((2u << (k & 31)) - 1u);
-  while (!msk) {
-    if (--w < 0) return -1;
-    msk = ball[w];
+// a[k] for a warp-uniform k (column U-1's slot in its lane): one switch,
+// not a select per column
+#define MTR_PICK_CASE(N)                 \
+  case N:                                \
+    if constexpr (N < C) v = a[N];       \
+    break;
+template <int C>
+__device__ __forceinline__ int pick(const int (&a)[C], int k) {
+  int v = 0;
+  switch (k) {
+    MTR_PICK_CASE(0) MTR_PICK_CASE(1) MTR_PICK_CASE(2) MTR_PICK_CASE(3)
+    MTR_PICK_CASE(4) MTR_PICK_CASE(5) MTR_PICK_CASE(6) MTR_PICK_CASE(7)
+    MTR_PICK_CASE(8) MTR_PICK_CASE(9) MTR_PICK_CASE(10) MTR_PICK_CASE(11)
+    MTR_PICK_CASE(12) MTR_PICK_CASE(13) MTR_PICK_CASE(14) MTR_PICK_CASE(15)
   }
-  return (w << 5) + 31 - __clz(msk);
+  return v;
 }
+#undef MTR_PICK_CASE
 
-template <int U_SPAN>
-__global__ void __launch_bounds__(U_SPAN)
-wrap_dp_counts_kernel(const int8_t* __restrict__ flat,
-                      const int32_t* __restrict__ starts,
-                      const int32_t* __restrict__ scal,
-                      const int8_t* __restrict__ unit,
-                      const int32_t* __restrict__ max_rep,
-                      int32_t* __restrict__ out) {
-  constexpr int NW = U_SPAN / 32;
-  __shared__ int8_t s_rep[U_SPAN];
-  __shared__ int s_val[2][U_SPAN];      // DP rows, double-buffered
-  __shared__ int s_aux[2][3][U_SPAN];   // (m, ins, si) per cell, double-buffered
-  __shared__ int s_base[3][U_SPAN];     // aux bases before the deletion copy
-  __shared__ int s_wv[NW];              // per-warp scan tail value
-  __shared__ int s_wf[NW];              // per-warp "has a segment start"
-  __shared__ unsigned s_ball[NW];       // per-warp non-deletion ballot
-  __shared__ int s_rv[NW], s_ri[NW], s_rj[NW];
+#define MTR_PICK3_CASE(N)                                 \
+  case N:                                                 \
+    if constexpr (N < C) {                                \
+      x = a[N];                                           \
+      y = b[N];                                           \
+      z = c[N];                                           \
+    }                                                     \
+    break;
+template <int C>
+__device__ __forceinline__ void pick3(const int (&a)[C], const int (&b)[C],
+                                      const int (&c)[C], int k, int& x,
+                                      int& y, int& z) {
+  switch (k) {
+    MTR_PICK3_CASE(0) MTR_PICK3_CASE(1) MTR_PICK3_CASE(2) MTR_PICK3_CASE(3)
+    MTR_PICK3_CASE(4) MTR_PICK3_CASE(5) MTR_PICK3_CASE(6) MTR_PICK3_CASE(7)
+    MTR_PICK3_CASE(8) MTR_PICK3_CASE(9) MTR_PICK3_CASE(10) MTR_PICK3_CASE(11)
+    MTR_PICK3_CASE(12) MTR_PICK3_CASE(13) MTR_PICK3_CASE(14) MTR_PICK3_CASE(15)
+  }
+}
+#undef MTR_PICK3_CASE
 
-  const int job = blockIdx.x;
-  const int j = threadIdx.x;
-  const int lane = j & 31;
-  const int w = j >> 5;
+__device__ __forceinline__ bool bit(unsigned m, int c) { return (m >> c) & 1u; }
+
+// One job on one warp, its unit's C columns a lane.
+template <int C>
+__device__ __forceinline__ void counts_job(
+    const int job, const int8_t* __restrict__ flat,
+    const int32_t* __restrict__ starts, const int32_t* __restrict__ scal,
+    const int8_t* __restrict__ unit, const int u_span,
+    const int32_t* __restrict__ max_rep, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x;
 
   const int32_t* sc = scal + (int64_t)job * 8;
   const int rep_len = sc[0];
   const int unit_len = sc[1];
   const int mg = sc[2], mp = sc[3], ip = sc[4];
   const int64_t start = starts[job];
+  const int base_j = lane * C;
   const int ulm1 = max(unit_len - 1, 0);
-  const bool sub_ok = j < unit_len;
-  const bool j0 = j == 0;
-  const int u = unit[(int64_t)job * U_SPAN + j];
-  const int ipj = ip * j;
+  const int lane_w = ulm1 / C;           // the lane holding column U-1
+  const int col_w = ulm1 - lane_w * C;   // ... and its column there
 
-  int prev = 0, am = 0, ai = 0, as = 0;   // this cell's previous row
-  int bv = 0, bi = 0, bm = 0, bins = 0, bsi = 0;
-  s_val[0][j] = 0;
-  s_aux[0][0][j] = 0;
-  s_aux[0][1][j] = 0;
-  s_aux[0][2][j] = 0;
-  __syncthreads();
+  const int n_valid = unit_len - base_j;  // column c is real iff c < n_valid
+  int u[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) u[c] = unit[(int64_t)job * u_span + base_j + c];
+  constexpr unsigned all = (1u << C) - 1u;
+
+  int prev[C], am[C], ai[C], as[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) prev[c] = am[c] = ai[c] = as[c] = 0;
+  int wrow = 0, wm = 0, wi = 0, ws = 0;  // column U-1 of the previous row
+  int bv = 0, bic = 0, bm = 0, bins = 0, bsi = 0;  // bic = row << 4 | c
+  int code_buf = -1;
 
   for (int r = 0; r < rep_len; ++r) {
-    const int cur = r & 1, nxt = cur ^ 1;
+    if ((r & 31) == 0) {
+      const int rr = r + lane;
+      code_buf = rr < rep_len ? flat[start + rr] : -1;
+    }
+    const int code = __shfl_sync(kFull, code_buf, r & 31);
     const int i = r + 1;
-    const int tr = r % U_SPAN;
-    if (tr == 0) {
-      const int rr = r + j;
-      s_rep[j] = rr < rep_len ? flat[start + rr] : (int8_t)-1;
-      __syncthreads();
-    }
-    // ---- A: candidates and the in-row deletion chain ----
-    const bool mi = u == (int)s_rep[tr];
-    const int diag = j0 ? s_val[cur][ulm1] : s_val[cur][j - 1];
-    const int dmp = diag - mp;
-    const int m = mi ? diag + mg : max(0, max(dmp, prev - ip));
-    bool seg = mi || j0;
-    int v = mtr::seg_max_scan_warp(m + ipj, seg, lane, w, s_wv, s_wf);
-    __syncthreads();
-    // ---- B: close the scan across warps, publish the row ----
-    v = mtr::seg_max_scan_close(v, seg, w, s_wv, s_wf);
-    int row = mi ? m : v - ipj;
-    if (!sub_ok) row = 0;
-    s_val[nxt][j] = row;
-    const int da_m = j0 ? s_aux[cur][0][ulm1] : s_aux[cur][0][j - 1];
-    const int da_i = j0 ? s_aux[cur][1][ulm1] : s_aux[cur][1][j - 1];
-    const int da_s = j0 ? s_aux[cur][2][ulm1] : s_aux[cur][2][j - 1];
-    __syncthreads();
-    // ---- C: traceback precedence on final values ----
-    const bool pos = row > 0;
-    const bool e2v = row == dmp;
-    const bool sel_diag = pos && (mi || e2v);
-    const int left = j0 ? s_val[nxt][ulm1] : s_val[nxt][j - 1];
-    const bool sel_d = pos && !mi && !e2v && row == left - ip;
-    s_base[0][j] = sel_diag ? da_m + (int)mi : (pos ? am : 0);
-    s_base[1][j] = sel_diag ? da_i : (pos ? ai + 1 : 0);
-    s_base[2][j] = sel_diag ? da_s : (pos ? as : i);
-    const unsigned nd = __ballot_sync(kFull, !sel_d);
-    if (lane == 0) s_ball[w] = nd;
-    __syncthreads();
-    // ---- D: deletion-chain copy from the nearest origin, argmax ----
-    int src = origin_of(j, s_ball);
-    if (src < 0) src = max(origin_of(ulm1, s_ball), 0);
-    am = s_base[0][src];
-    ai = s_base[1][src];
-    as = s_base[2][src];
-    s_aux[nxt][0][j] = am;
-    s_aux[nxt][1][j] = ai;
-    s_aux[nxt][2][j] = as;
-    if (row > bv) {
-      bv = row;
-      bi = i;
-      bm = am;
-      bins = ai;
-      bsi = as;
-    }
-    prev = row;
-  }
 
-  // ---- row-major-first argmax: max value, smallest row, smallest lane ----
-  int kv = bv, ki = bi, kj = j;
-  mtr::argmax_warp(kv, ki, kj);
-  // s_base is free after the last row's barrier
-  __syncthreads();
-  s_base[0][j] = bm;
-  s_base[1][j] = bins;
-  s_base[2][j] = bsi;
-  if (lane == 0) {
-    s_rv[w] = kv;
-    s_ri[w] = ki;
-    s_rj[w] = kj;
-  }
-  __syncthreads();
-  if (j == 0) {
-    for (int k = 1; k < NW; ++k) {
-      const int ov = s_rv[k], oi = s_ri[k], oj = s_rj[k];
-      if (mtr::argmax_before(ov, oi, oj, kv, ki, kj)) {
-        kv = ov;
-        ki = oi;
-        kj = oj;
+    // previous row's column base_j - 1 (lane 0: the wrap column U-1)
+    int up_v = __shfl_up_sync(kFull, prev[C - 1], 1);
+    int up_m = __shfl_up_sync(kFull, am[C - 1], 1);
+    int up_i = __shfl_up_sync(kFull, ai[C - 1], 1);
+    int up_s = __shfl_up_sync(kFull, as[C - 1], 1);
+    if (lane == 0) {
+      up_v = wrow;
+      up_m = wm;
+      up_i = wi;
+      up_s = ws;
+    }
+
+    // ---- candidates; the deletion chain inside the lane, no carry ----
+    int d[C];
+    unsigned seg = lane == 0 ? 1u : 0u;  // chain resets: matches and j == 0
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int diag = c ? prev[c - 1] : up_v;
+      const bool mi = u[c] == code;
+      seg |= (unsigned)mi << c;
+      d[c] = mi ? diag + mg : __vimax_s32_relu(diag - mp, prev[c] - ip);
+    }
+    int t = d[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c)
+      t = bit(seg, c) ? d[c] : __viaddmax_s32(t, -ip, d[c]);
+
+    // ---- segmented max scan of the lane tails, in D[j] + ip*j ----
+    int tt = t + ip * (base_j + C - 1);
+    const unsigned sb = __ballot_sync(kFull, seg != 0u);
+    const int seg_lane = 31 - __clz(sb & ((2u << lane) - 1u));
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int o = __shfl_up_sync(kFull, tt, s);
+      if (lane - s >= seg_lane) tt = max(tt, o);
+    }
+    // D at column base_j - 1 (lane 0 starts a segment: unused there)
+    int x = __shfl_up_sync(kFull, tt, 1) - ip * (base_j - 1);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      x = bit(seg, c) ? d[c] : __viaddmax_s32(x, -ip, d[c]);
+      d[c] = c < n_valid ? x : 0;  // the row's final values
+    }
+
+    // ---- one pass over the lane: traceback precedence match >
+    //      mismatch > deletion > insertion on final values, each cell's
+    //      aux base from the previous row's payloads, and the deletion
+    //      copy from the lane's last origin (non-deletion cell) ----
+    const int r_u1 = __shfl_sync(kFull, pick<C>(d, col_w), lane_w);  // row[U-1]
+    int left = __shfl_up_sync(kFull, d[C - 1], 1);
+    if (lane == 0) left = r_u1;
+    int om = up_m, oi = up_i, os = up_s;  // previous row, column c - 1
+    int cm = 0, ci = 0, cs = 0;           // the lane's last origin so far
+    int pm = 0, pi = 0, ps = 0;           // published: column 0's base, or
+    unsigned ndm = 0;                     // the lane's last origin
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int row = d[c];
+      const int diag = c ? prev[c - 1] : up_v;
+      const bool mi = u[c] == code;
+      const bool pos = row > 0;
+      const bool e2v = row == diag - mp;
+      const bool sd = pos && (mi || e2v);
+      const bool del = pos && !mi && !e2v && row == left - ip;
+      const int tm = am[c], ti = ai[c], ts = as[c];
+      const int bm_ = sd ? om + (int)mi : (pos ? tm : 0);
+      const int bi_ = sd ? oi : (pos ? ti + 1 : 0);
+      const int bs_ = sd ? os : (pos ? ts : i);
+      om = tm;
+      oi = ti;
+      os = ts;
+      if (c == 0) {
+        pm = bm_;
+        pi = bi_;
+        ps = bs_;
+      }
+      if (!del && c < n_valid) {
+        cm = bm_;
+        ci = bi_;
+        cs = bs_;
+        ndm |= 1u << c;
+      }
+      am[c] = cm;
+      ai[c] = ci;
+      as[c] = cs;
+      left = row;
+    }
+    if (ndm) {
+      pm = cm;
+      pi = ci;
+      ps = cs;
+    }
+    const unsigned nb = __ballot_sync(kFull, ndm != 0u);
+    const unsigned lo = nb & ((1u << lane) - 1u);
+    const int src = lo ? 31 - __clz(lo) : 0;
+    const int km = __shfl_sync(kFull, pm, src);
+    const int ki = __shfl_sync(kFull, pi, src);
+    const int ks = __shfl_sync(kFull, ps, src);
+    const unsigned before = ndm ? ((ndm & (0u - ndm)) - 1u) : all;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (bit(before, c)) {
+        am[c] = km;
+        ai[c] = ki;
+        as[c] = ks;
       }
     }
+    // column U-1's payloads: the next row's wrap, and the value of the
+    // cells whose whole prefix is deletions (when the row has an origin;
+    // with none, every cell already holds column 0's base)
+    pick3<C>(am, ai, as, col_w, wm, wi, ws);
+    wm = __shfl_sync(kFull, wm, lane_w);
+    wi = __shfl_sync(kFull, wi, lane_w);
+    ws = __shfl_sync(kFull, ws, lane_w);
+    wrow = r_u1;
+    const unsigned openm = (lo == 0u && nb != 0u) ? before : 0u;
+    if (__any_sync(kFull, openm != 0u)) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (bit(openm, c)) {
+          am[c] = wm;
+          ai[c] = wi;
+          as[c] = ws;
+        }
+      }
+    }
+
+    // ---- argmax: strict >, so the first row and column win ----
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      bool keep;
+      bv = __vibmax_s32(bv, d[c], &keep);
+      if (!keep) {
+        bic = (i << 4) | c;
+        bm = am[c];
+        bins = ai[c];
+        bsi = as[c];
+      }
+      prev[c] = d[c];
+    }
+  }
+
+  // ---- row-major-first argmax over the lanes ----
+  int kv = bv, ki = bic >> 4, kj = base_j + (bic & 15);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int ov = __shfl_down_sync(kFull, kv, off);
+    const int oi = __shfl_down_sync(kFull, ki, off);
+    const int oj = __shfl_down_sync(kFull, kj, off);
+    if (ov > kv || (ov == kv && (oi < ki || (oi == ki && oj < kj)))) {
+      kv = ov;
+      ki = oi;
+      kj = oj;
+    }
+  }
+  kv = __shfl_sync(kFull, kv, 0);
+  ki = __shfl_sync(kFull, ki, 0);
+  kj = __shfl_sync(kFull, kj, 0);
+  const int owner = kj / C;
+  const int m0 = __shfl_sync(kFull, bm, owner);
+  const int ins0 = __shfl_sync(kFull, bins, owner);
+  const int si0 = __shfl_sync(kFull, bsi, owner);
+  if (lane == 0) {
     const bool found = kv > 0;
     const int max_i = found ? ki : 0;
     const int max_j = found ? kj + 1 : 0;
-    const int m = found ? s_base[0][kj] : 0;
-    const int ins = found ? s_base[1][kj] : 0;
-    const int si = found ? s_base[2][kj] : 0;
+    const int m = found ? m0 : 0;
+    const int ins = found ? ins0 : 0;
+    const int si = found ? si0 : 0;
     // the wrap column of the batch's final row: rows past a job's own
     // rep_len are all zero, so only the batch's longest jobs keep it
-    const int wrap = rep_len == *max_rep ? s_val[rep_len & 1][ulm1] : 0;
-    const int x = max_i - si - m - ins;                      // read consumption
+    const int wrap = rep_len == *max_rep ? wrow : 0;
+    const int x = max_i - si - m - ins;                             // read consumption
     const int dl = floor_div(m * mg - x * mp - kv - ins * ip, ip);  // score
     int32_t* o = out + (int64_t)job * 15;
     o[0] = m;
@@ -218,31 +337,68 @@ wrap_dp_counts_kernel(const int8_t* __restrict__ flat,
   }
 }
 
-template <int U_SPAN>
+// One launch for every job of a batch, whatever its unit: block b (one
+// warp) runs job b with C = ceil(unit_len / 32), so jobs of every unit
+// width run side by side and the batcher's longest-first order holds
+// across them (a launch per C would serialise latency-bound launches).
+// A kernel's register count is that of its widest body, so there are
+// three: up to C = 4, 8 and 16, and a launch takes the narrowest that
+// holds its widest job (more warps an SM for narrow units).
+#define MTR_COLS_CASE(N)                                                   \
+  case N:                                                                  \
+    if constexpr (N <= MAX_C)                                              \
+      counts_job<N>(job, flat, starts, scal, unit, u_span, max_rep, out);  \
+    break;
+template <int MAX_C>
+__global__ void __launch_bounds__(32)
+wrap_dp_counts_kernel(const int8_t* __restrict__ flat,
+                      const int32_t* __restrict__ starts,
+                      const int32_t* __restrict__ scal,
+                      const int8_t* __restrict__ unit, const int u_span,
+                      const int32_t* __restrict__ max_rep,
+                      int32_t* __restrict__ out) {
+  const int job = blockIdx.x;
+  const int cols = min(max((scal[(int64_t)job * 8 + 1] + 31) >> 5, 1),
+                       u_span >> 5);
+  switch (cols) {
+    MTR_COLS_CASE(1) MTR_COLS_CASE(2) MTR_COLS_CASE(3) MTR_COLS_CASE(4)
+    MTR_COLS_CASE(5) MTR_COLS_CASE(6) MTR_COLS_CASE(7) MTR_COLS_CASE(8)
+    MTR_COLS_CASE(9) MTR_COLS_CASE(10) MTR_COLS_CASE(11) MTR_COLS_CASE(12)
+    MTR_COLS_CASE(13) MTR_COLS_CASE(14) MTR_COLS_CASE(15) MTR_COLS_CASE(16)
+  }
+}
+#undef MTR_COLS_CASE
+
+template <int MAX_C>
 void launch(const void* flat, const void* starts, const void* scal,
-            const void* unit, const void* max_rep, void* out, int n_jobs,
-            cudaStream_t stream) {
-  wrap_dp_counts_kernel<U_SPAN><<<n_jobs, U_SPAN, 0, stream>>>(
+            const void* unit, int u_span, const void* max_rep, void* out,
+            int n_jobs, cudaStream_t stream) {
+  wrap_dp_counts_kernel<MAX_C><<<n_jobs, 32, 0, stream>>>(
       static_cast<const int8_t*>(flat), static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(scal), static_cast<const int8_t*>(unit),
-      static_cast<const int32_t*>(max_rep), static_cast<int32_t*>(out));
+      u_span, static_cast<const int32_t*>(max_rep),
+      static_cast<int32_t*>(out));
 }
 
 }  // namespace
 
-// C entry point for ctypes.  Returns the cudaError_t of the launch (0 on
-// success); an unsupported u_span returns cudaErrorInvalidValue.
+// C entry point for ctypes.  Unit rows are u_span codes wide (a multiple
+// of 32, at most 512; every job's unit_len <= u_span).  Returns the
+// cudaError_t of the launch (0 on success); an unsupported u_span returns
+// cudaErrorInvalidValue.
 extern "C" int mtr_wrap_dp_counts(int u_span, const void* flat,
                                   const void* starts, const void* scal,
                                   const void* unit, const void* max_rep,
                                   void* out, int n_jobs, void* stream) {
   if (n_jobs <= 0) return 0;
+  if (u_span < 32 || u_span > 512 || u_span % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (u_span) {
-    case 128: launch<128>(flat, starts, scal, unit, max_rep, out, n_jobs, s); break;
-    case 256: launch<256>(flat, starts, scal, unit, max_rep, out, n_jobs, s); break;
-    case 512: launch<512>(flat, starts, scal, unit, max_rep, out, n_jobs, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (u_span <= 128)
+    launch<4>(flat, starts, scal, unit, u_span, max_rep, out, n_jobs, s);
+  else if (u_span <= 256)
+    launch<8>(flat, starts, scal, unit, u_span, max_rep, out, n_jobs, s);
+  else
+    launch<16>(flat, starts, scal, unit, u_span, max_rep, out, n_jobs, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
-// Device helpers shared by the wrap-around DP kernels (wrap_dp_counts.cu,
-// wrap_dp_consensus.cu): one thread block per job, one thread per unit
-// column, rows strictly sequential.
+// Device helpers of the one-block-per-job wrap-around DP kernels
+// (wrap_dp_consensus.cu, and wrap_dp_counts_block.cu, the counts kernel's
+// first design): one thread per unit column, rows strictly sequential.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -4,7 +4,9 @@ library, bound with ctypes).
 The library is built at first use from the sources under
 mtr_tpu_torch/csrc/ into build/mtr_tpu_torch/<hash>/ at the repository
 root, keyed by a hash of the sources, headers and flags, so an edited
-source never loads a stale binary.  A failed build raises with nvcc's stderr: there is
+source never loads a stale binary.  The counts kernel's first design
+(csrc/wrap_dp_counts_block.cu) builds only on request, into a library of
+its own (baseline_library): chip_smoke.py times the kernel against it.  A failed build raises with nvcc's stderr: there is
 no fallback to the plain version.
 """
 
@@ -23,6 +25,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, name) for name in (
     "wrap_dp_counts.cu", "wrap_dp_consensus.cu", "dbg_walk.cu"))
 HEADERS = (os.path.join(_CSRC, "wrap_dp_rows.cuh"),)
+BASELINE = os.path.join(_CSRC, "wrap_dp_counts_block.cu")
 BUILD_DIR = os.path.join(_ROOT, "build", "mtr_tpu_torch")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-Xcompiler", "-fPIC")
@@ -47,7 +50,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES + HEADERS:
+    for src in SOURCES + HEADERS + (BASELINE,):
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -66,27 +69,33 @@ def _run_all(cmds: list[list[str]]) -> None:
                 f"nvcc failed (exit {p.returncode}) on {cmd[-1]}:\n{err}")
 
 
+def _build(name: str, sources: tuple) -> str:
+    """Build `sources` into lib<name>.so under the hash directory (one
+    nvcc per source, all started together, then one link); returns its
+    path."""
+    out_dir = os.path.join(BUILD_DIR, _digest())
+    so = os.path.join(out_dir, f"lib{name}.so")
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        nvcc = _nvcc()
+        tag = os.getpid()
+        objs = [os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+                for src in sources]
+        _run_all([[nvcc, *FLAGS, "-c", "-o", obj, src]
+                  for obj, src in zip(objs, sources)])
+        tmp = f"{so}.{tag}.tmp"
+        _run_all([[nvcc, *FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
+    return so
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use: one nvcc per source,
-    all started together, then one link."""
+    """The loaded kernel library, built on first use."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        out_dir = os.path.join(BUILD_DIR, _digest())
-        so = os.path.join(out_dir, "libmtr_tpu_torch.so")
-        if not os.path.exists(so):
-            os.makedirs(out_dir, exist_ok=True)
-            nvcc = _nvcc()
-            tag = os.getpid()
-            objs = [os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
-                    for src in SOURCES]
-            _run_all([[nvcc, *FLAGS, "-c", "-o", obj, src]
-                      for obj, src in zip(objs, SOURCES)])
-            tmp = f"{so}.{tag}.tmp"
-            _run_all([[nvcc, *FLAGS, "-shared", "-o", tmp, *objs]])
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(_build("mtr_tpu_torch", SOURCES))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.mtr_wrap_dp_counts.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, vp]
         lib.mtr_wrap_dp_consensus_fill.argtypes = [
@@ -100,3 +109,17 @@ def library() -> ctypes.CDLL:
             fn.restype = ci
         _LIB = lib
         return lib
+
+
+def baseline_library() -> ctypes.CDLL:
+    """The first design of the counts kernel (csrc/wrap_dp_counts_block.cu,
+    entry mtr_wrap_dp_counts_block(u_span 128/256/512, ...)), in a library
+    of its own: a yardstick for timing, launched by no path of the
+    port."""
+    with _LOCK:
+        lib = ctypes.CDLL(_build("mtr_counts_block", (BASELINE,)))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mtr_wrap_dp_counts_block.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci,
+                                             vp]
+    lib.mtr_wrap_dp_counts_block.restype = ci
+    return lib

@@ -38,7 +38,7 @@ import threading
 import numpy as np
 import torch
 
-from mtr_tpu.utils.timers import TIMERS
+from mtr_tpu_torch.utils.timers import TIMERS
 
 MAX_PERIOD = 500
 MIN_NUM_FREQ_UNIT = 5
@@ -503,15 +503,12 @@ _NATIVE_LOCK = threading.Lock()
 def native_walks(orgs, lens, read_idx, qss, qes, ks):
     """native.dbg_walk_batch2, one call at a time, with its result copied
     out of the engine's process-wide result buffers (the walk thread and
-    the wave loop of the DP thread both walk); None without the native
-    engine."""
-    from mtr_tpu import native
+    the wave loop of the DP thread both walk)."""
+    from mtr_tpu_torch import native
 
     n = len(read_idx)
     with _NATIVE_LOCK:
         r = native.dbg_walk_batch2(orgs, lens, read_idx, qss, qes, ks)
-        if r is None:
-            return None
         out = {key: r[key][:n].copy() for key in
                ("fwd_row", "bwd_row", "fwd_period", "bwd_period",
                 "found_last")}
@@ -523,15 +520,9 @@ def native_walks(orgs, lens, read_idx, qss, qes, ks):
 
 
 def _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res, rows):
-    """The queries h in one native.dbg_walk_batch2 call (the oracle per
-    query where the native engine is absent)."""
+    """The queries h in one native.dbg_walk_batch2 call."""
     orgs = [np.ascontiguousarray(o, np.int32) for o in org_arrays]
     r = native_walks(orgs, lens, read_idx[h], qss[h], qes[h], ks[h])
-    if r is None:
-        for qi in h:
-            _oracle_query(orgs, lens, read_idx, qss, qes, ks, int(qi), res,
-                          rows)
-        return
     # the native rows follow this batch's rows
     off = rows.n
     rows.add(r["units"], r["scores"])
@@ -539,31 +530,6 @@ def _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res, rows):
         res[key][h] = np.where(r[key] >= 0, r[key] + off, -1)
     for key in ("fwd_period", "bwd_period", "found_last"):
         res[key][h] = r[key]
-
-
-def _oracle_query(orgs, lens, read_idx, qss, qes, ks, qi, res, rows):
-    from mtr_tpu.oracle.dbg import walk_candidates
-    from mtr_tpu.records import RepeatRecord
-    from mtr_tpu.utils.encoding import encode_bases
-
-    template = RepeatRecord()
-    template.kmer = int(ks[qi])
-    ridx = int(read_idx[qi])
-    cands, found = walk_candidates(orgs[ridx], int(lens[ridx]), int(qss[qi]),
-                                   int(qes[qi]), template)
-    res["found_last"][qi] = found
-    # candidates come forward first; a lone one is backward iff the
-    # backward search (the last one) found a loop
-    dirs = {2: ["fwd", "bwd"], 1: ["bwd" if found == 1 else "fwd"],
-            0: []}[len(cands)]
-    for cand, d in zip(cands, dirs):
-        p = cand.rep_period
-        u = np.zeros((1, MAX_PERIOD), np.int32)
-        s = np.zeros_like(u)
-        u[0, :p] = encode_bases(cand.string)
-        s[0, :p] = cand.string_score
-        res[f"{d}_row"][qi] = rows.add(u, s)[0]
-        res[f"{d}_period"][qi] = p
 
 
 def dbg_walk_device_batch(org_arrays, len_table, read_idx, qss, qes, ks,

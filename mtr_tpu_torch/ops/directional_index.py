@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mtr_tpu.utils.timers import TIMERS
+from mtr_tpu_torch.utils.timers import TIMERS
 
 POS_BUCKETS = (16384, 131072, 1048576 + 65536)
 _CHUNK = 256

@@ -30,8 +30,11 @@ import ctypes
 
 import torch
 
-from mtr_tpu.native import MAX_PERIOD
-from mtr_tpu_torch.ops.wrap_dp_counts import NEG, U_SPANS
+from mtr_tpu_torch.native import MAX_PERIOD
+from mtr_tpu_torch.ops.wrap_dp_counts import NEG
+
+# unit spans the kernels are instantiated for (one thread per unit column)
+U_SPANS = (128, 256, 512)
 
 # move codes
 STOP, DIAG, DEL, INS = 0, 1, 2, 3

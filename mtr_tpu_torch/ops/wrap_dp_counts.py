@@ -17,9 +17,12 @@ column of the batch's final row, so it is 0 for every job shorter than
 the batch's longest, exactly as in the JAX kernels.
 
 `wrap_dp_counts` is the resident form used by the device batcher: rep
-codes are read from the batch's flat int8 reads at `starts`.  CUDA
-tensors launch the hand-written kernel (csrc/wrap_dp_counts.cu), or the
-call raises; CPU tensors run the plain version.
+codes are read from the batch's flat int8 reads at `starts`, and unit
+rows are u_span codes wide, a multiple of 32 (the kernel gives each job
+C = ceil(unit_len / 32) columns a lane, so jobs of every unit width share
+one launch).  CUDA tensors launch the hand-written
+kernel (csrc/wrap_dp_counts.cu), or the call raises; CPU tensors run the
+plain version.
 """
 
 from __future__ import annotations
@@ -29,16 +32,28 @@ import ctypes
 import torch
 
 NEG = -(1 << 30)
-# unit spans the kernel is instantiated for (fused2 / fused2w / v1 ranges)
-U_SPANS = (128, 256, 512)
+# unit row widths the kernel takes: 32 * C, C = 1..16 columns a lane
+# (units 1-512)
+U_SPANS = tuple(32 * c for c in range(1, 17))
 # kernel bounds, asserted by the dispatcher (pipeline.TorchDPBatcher):
-# rep_len <= R_MAX (mtr_tpu.pipeline.R_BUCKETS[-1]) and the scan value
-# rep_len*mg + ip*u_span must fit int32
+# rep_len <= R_MAX (the JAX package's largest rep bucket) and, per job,
+# the scan value rep_len*mg + ip*u_span_for(unit_len) (D[j] + ip*j) must
+# fit int32
 R_MAX = 1 << 20
 VALUE_LIMIT = 1 << 31
 
 # kernel launches since the last reset (the main path shows it ran here)
 LAUNCHES = 0
+
+
+def u_span_for(unit_len: int) -> int:
+    """32 * C for a unit, C = ceil(unit_len / 32) the columns a lane holds
+    in the counts kernel."""
+    span = 32 * max(1, -(-unit_len // 32))
+    if span > U_SPANS[-1]:
+        raise ValueError(f"unit_len {unit_len} exceeds the largest span "
+                         f"{U_SPANS[-1]}")
+    return span
 
 
 def wrap_dp_counts_plain(scal: torch.Tensor, rep: torch.Tensor,

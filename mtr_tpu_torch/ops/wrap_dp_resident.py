@@ -43,7 +43,13 @@ def _r_pad(scal: torch.Tensor) -> int:
 def counts_resident_plain(flat: torch.Tensor, starts: torch.Tensor,
                           scal: torch.Tensor,
                           unit: torch.Tensor) -> torch.Tensor:
-    """Plain counterpart of the resident counts kernel: gather, then fill."""
+    """Plain counterpart of the resident counts kernel: gather, then fill
+    (the unit rows padded with -2 to the power of two the plain scan
+    needs)."""
+    u_pad = 1 << (unit.shape[1] - 1).bit_length()
+    if u_pad != unit.shape[1]:
+        unit = torch.nn.functional.pad(unit, (0, u_pad - unit.shape[1]),
+                                       value=-2)
     return wrap_dp_counts_plain(
         scal, gather_segments(flat, starts, _r_pad(scal)), unit)
 

@@ -1,20 +1,20 @@
-"""PyTorch counterpart of mtr_tpu/pipeline.py: the device DP batcher, the
-hybrid engine, the walk stage, the wave loop and the per-file main loop.
+"""PyTorch counterpart of mtr_tpu/pipeline.py: the host DP batcher, the
+torch DP batcher, the hybrid engine, the walk stage, the wave loop and the
+per-file main loop.
 
-Every host stage (DI pairing and candidate ranges, polish, chaining, the
-native C++ DP and walk engines) is reused from mtr_tpu as it stands; none
-of them imports JAX.  What this module owns is the device leg: the
-wrap-around DP jobs on a CUDA card (counts mode through
-ops/wrap_dp_counts.py, consensus mode through ops/wrap_dp_consensus.py),
-the hybrid split that feeds it, and, under backend "device", the DI
-sliding windows of long reads (ops/directional_index.py) and the DBG
-walks (ops/dbg_device.py).  walk_batch and process_batch are this
-module's own copies of mtr_tpu's, whose walk branches call the port, so
-that every wave's walks run where the config says.
+The host half (DP jobs and their dedup, the native-engine batcher, scheme
+selection, polish and revision rounds, the wave selection and replay,
+candidate-range queries) is this module's own copy of mtr_tpu's, on the
+port's own host modules.  The device leg runs the wrap-around DP jobs on a
+CUDA card (counts mode through ops/wrap_dp_counts.py, consensus mode
+through ops/wrap_dp_consensus.py) and, under backend "device", the DI
+sliding windows of long reads (ops/directional_index.py) and the DBG walks
+(ops/dbg_device.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -23,43 +23,38 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from mtr_tpu import native
-from mtr_tpu.chaining import chain_records
-from mtr_tpu.config import DEFAULT_CONFIG, MTRConfig
-from mtr_tpu.io.fasta import iter_fasta
-from mtr_tpu.oracle.arena import Arena
-from mtr_tpu.oracle.dbg import freq_2mer_array, walk_candidates
-from mtr_tpu.oracle.directional_index import fill_directional_index_with_end
-from mtr_tpu.pipeline import (
-    MAX_WAVES,
-    MOVES_BYTES_CAP,
-    TB_FACTOR,
-    DPJob,
-    HostDPBatcher,
-    RangeQuery,
-    ReadState,
-    _accepts,
-    _collect_queries,
-    _env_flag,
-    _live_positions,
-    _process_wave,
-    dedup_jobs,
-    wave1_positions,
-    waves_policy,
-)
-from mtr_tpu.records import RepeatRecord
-from mtr_tpu.utils.encoding import decode_bases
-from mtr_tpu.utils.timers import TIMERS
+from mtr_tpu_torch import native
+from mtr_tpu_torch.chaining import chain_records
+from mtr_tpu_torch.config import DEFAULT_CONFIG, MTRConfig
+from mtr_tpu_torch.io.fasta import Read, iter_fasta
 from mtr_tpu_torch.ops.dbg_device import dbg_walk_device_batch, native_walks
 from mtr_tpu_torch.ops.directional_index import make_di_compute
 from mtr_tpu_torch.ops.mf_filter import walked_mask
+from mtr_tpu_torch.ops.wrap_dp_consensus import U_SPANS as CONS_SPANS
 from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
 from mtr_tpu_torch.ops.wrap_dp_counts import (
     R_MAX,
-    U_SPANS,
     VALUE_LIMIT,
+    u_span_for,
     wrap_dp_counts,
 )
+from mtr_tpu_torch.oracle.arena import Arena
+from mtr_tpu_torch.oracle.consensus import polish_repeat, rebuild_units_batch
+from mtr_tpu_torch.oracle.dbg import (
+    MAX_PERIOD,
+    MIN_NUM_FREQ_UNIT,
+    MIN_PERIOD,
+    freq_2mer_array,
+    select_dp_candidate,
+    walk_candidates,
+)
+from mtr_tpu_torch.oracle.directional_index import (
+    fill_directional_index_with_end,
+)
+from mtr_tpu_torch.oracle.wrap_dp import _assign
+from mtr_tpu_torch.records import RepeatRecord, ratio_less
+from mtr_tpu_torch.utils.encoding import decode_bases, encode_bases
+from mtr_tpu_torch.utils.timers import TIMERS
 
 
 class BackendUnavailable(RuntimeError):
@@ -71,12 +66,453 @@ class BackendUnavailable(RuntimeError):
 MF_FILTER_MIN_QUERIES = 32768
 
 
-def _u_span(unit_len: int) -> int:
-    for u in U_SPANS:
+def _env_flag(name: str) -> bool:
+    """Boolean env knob: unset, empty, and "0" are all OFF (a plain
+    truthiness test would read FLAG=0 as enabled)."""
+    return os.environ.get(name, "") not in ("", "0")
+
+
+MOVES_BYTES_CAP = 1 << 30  # move scratch of one consensus launch
+TB_FACTOR = 6  # traceback steps a rep row, for every scheme but (1, *, >=1)
+
+
+_ENCODE_CACHE: dict = {}
+
+
+def _encode_unit(s: str) -> np.ndarray:
+    """encode_bases with memoization: the same few unit strings appear in
+    thousands of DP jobs per batch.  Returned arrays are read-only by
+    convention (DP job padding copies out of them)."""
+    a = _ENCODE_CACHE.get(s)
+    if a is None:
+        if len(_ENCODE_CACHE) > 65536:
+            _ENCODE_CACHE.clear()
+        a = encode_bases(s)
+        _ENCODE_CACHE[s] = a
+    return a
+
+
+def dedup_jobs(jobs: list["DPJob"]) -> tuple[list["DPJob"], list[int]]:
+    """Many k values discover the SAME unit for the same range, and the
+    DP result depends only on (read segment, unit, scheme, mode) — so
+    identical jobs are computed once and fanned out.  Returns the unique
+    job list and, per original job, its index into it."""
+    uniq: dict = {}
+    uniq_jobs: list[DPJob] = []
+    remap: list[int] = []
+    for job in jobs:
+        key = (
+            id(job.org), job.qs, job.qe,
+            job.unit.tobytes(), job.scheme, job.mode,
+        )
+        idx = uniq.get(key)
+        if idx is None:
+            idx = len(uniq_jobs)
+            uniq[key] = idx
+            uniq_jobs.append(job)
+        remap.append(idx)
+    return uniq_jobs, remap
+
+
+@dataclasses.dataclass
+class DPJob:
+    org: np.ndarray  # effective per-read arena view (codes + stale tail)
+    qs: int
+    qe: int
+    unit: np.ndarray  # int32 unit codes
+    scheme: tuple
+    mode: str = "counts"  # 'counts' | 'consensus'
+    result: object = None
+
+
+class HostDPBatcher:
+    """Native C++ wrap-DP engine (threaded scalar fills) with the same job
+    interface as TorchDPBatcher: the host backend, the hybrid's host leg,
+    and a cross-check.  The JAX package's degrade to the Python oracle
+    when the engine cannot be built is not carried over: a failed build
+    raises (native._load)."""
+
+    def begin_batch(self, orgs: list[np.ndarray]) -> None:
+        pass  # host engine reads segments in place
+
+    def run(self, jobs: list[DPJob], deduped: bool = False) -> None:
+        if deduped:
+            self._run(jobs)
+            return
+        uniq_jobs, remap = dedup_jobs(jobs)
+        self._run(uniq_jobs)
+        if len(uniq_jobs) != len(jobs):
+            for job, ui in zip(jobs, remap):
+                job.result = uniq_jobs[ui].result
+
+    def _run(self, jobs: list[DPJob]) -> None:
+        if not jobs:
+            return
+        n = len(jobs)
+        # pooled: the C side reads only units[q, :ulens[q]], so stale data
+        # beyond each unit is never seen
+        units = native.POOL.get("dpb_units", (n, 500), np.int32)
+        ulens = np.zeros(n, np.int32)
+        schemes = np.zeros((n, 3), np.int32)
+        modes = np.zeros(n, np.int32)
+        orgs, qss, qes = [], [], []
+        for q, job in enumerate(jobs):
+            units[q, : len(job.unit)] = job.unit
+            ulens[q] = len(job.unit)
+            schemes[q] = job.scheme
+            modes[q] = 0 if job.mode == "counts" else 1
+            orgs.append(np.ascontiguousarray(job.org, np.int32))
+            qss.append(job.qs)
+            qes.append(job.qe)
+        with TIMERS.section("dp_fill"):
+            counts, cons, miss = native.wrap_dp_batch(
+                orgs, qss, qes, units, ulens, schemes, modes)
+        TIMERS.count("dp_jobs", n)
+        clist = counts[:n].tolist()  # one C-level conversion for all rows
+        for q, job in enumerate(jobs):
+            if job.mode == "counts":
+                m, x, ins, dele, scanned, i_final, max_i = clist[q]
+                job.result = ((m, x, ins, dele, scanned), i_final, max_i)
+            else:
+                job.result = (cons[q], miss[q])
+
+
+def apply_counts(rr: RepeatRecord, job: DPJob) -> None:
+    """Fill record fields from a counts-mode DP result
+    (wrap_around_DP.c:337-350)."""
+    (n_m, n_x, n_i, n_d, scanned), i_final, max_i = job.result
+    rr.rep_start = job.qs + i_final + 1
+    rr.rep_end = job.qs + max_i
+    rr.repeat_len = max_i - i_final
+    rr.num_freq_unit = scanned // len(job.unit) if len(job.unit) else 0
+    rr.num_matches = n_m
+    rr.num_mismatches = n_x
+    rr.num_insertions = n_i
+    rr.num_deletions = n_d
+    rr.match_gain, rr.mismatch_penalty, rr.indel_penalty = job.scheme
+
+
+@dataclasses.dataclass
+class RangeQuery:
+    read_idx: int
+    qs: int
+    qe: int
+    w: int
+    k: int
+    candidates: list = dataclasses.field(default_factory=list)
+    found: int = 0
+    result: RepeatRecord | None = None  # post-selection record (or cleared)
+
+
+@dataclasses.dataclass
+class ReadState:
+    read: Read
+    org: np.ndarray  # effective arena view, length L+1
+    di: np.ndarray
+    di_end: np.ndarray
+    di_w: np.ndarray
+    ridx: int = -1   # file-order read index (multi-host merge key)
+
+
+
+def _wrap_dp_schemes(batcher, queries_with_candidates) -> None:
+    """Phase 3+4a: batched wrap_around_DP (both schemes) for every walk
+    candidate; per candidate keep the higher-ratio scheme
+    (wrap_around_DP.c:357-429).
+
+    Candidates are deduplicated by (read, range, unit) BEFORE job
+    construction — different k values routinely discover the same unit,
+    and the DP + scheme selection depend only on this key — so each
+    unique candidate builds one job pair and runs one selection."""
+    dpjobs: list[DPJob] = []
+    uniq: dict = {}           # key -> index into selections
+    sel_jobs: list = []       # per unique key: (job113, job131)
+    meta: list = []           # per candidate: (cand, uniq_idx)
+    for q, org_arr in queries_with_candidates:
+        for cand in q.candidates:
+            unit = _encode_unit(cand.string)
+            key = (id(org_arr), q.qs, q.qe, cand.string)
+            ui = uniq.get(key)
+            if ui is None:
+                ui = len(sel_jobs)
+                uniq[key] = ui
+                j113 = DPJob(org_arr, q.qs, q.qe, unit, (1, 1, 3))
+                j131 = DPJob(org_arr, q.qs, q.qe, unit, (1, 3, 1))
+                dpjobs.append(j113)
+                dpjobs.append(j131)
+                sel_jobs.append((j113, j131))
+            meta.append((cand, ui))
+    # dpjobs is already unique under the batcher's dedup key (one job
+    # pair per (org, range, unit); schemes differ within a pair)
+    batcher.run(dpjobs, deduped=True)
+    # one scheme selection per unique candidate, vectorized: the scalar
+    # loop's semantics (wrap_around_DP.c:357-429 via ratio_less) reduce
+    # to: take (1,3,1) iff its ratio is non-NaN and either (1,1,3)'s is
+    # NaN or strictly smaller; else (1,1,3) if non-NaN; else neither.
+    n_sel = len(sel_jobs)
+    if n_sel:
+        cnt = np.empty((2 * n_sel, 2), np.int64)
+        for idx, job in enumerate(dpjobs):
+            (n_m, n_x, n_i, n_d, _scanned), _, _ = job.result
+            cnt[idx, 0] = n_m
+            cnt[idx, 1] = n_m + n_x + n_i + n_d
+        with np.errstate(invalid="ignore"):
+            # denom == 0 implies m == 0 (counts are nonnegative), so the
+            # only singular case is 0/0 -> NaN, exactly C float math
+            r = cnt[:, 0].astype(np.float32) / cnt[:, 1].astype(np.float32)
+        r113, r131 = r[0::2], r[1::2]
+        nan113, nan131 = np.isnan(r113), np.isnan(r131)
+        pick131 = ~nan131 & (nan113 | (r131 > r113))
+        pick113 = ~pick131 & ~nan113
+        rs = r.astype(np.float64)
+        ms = cnt[:, 0].tolist()
+        ds = cnt[:, 1].tolist()
+    empty = RepeatRecord()
+    for cand, ui in meta:
+        if pick131[ui]:
+            best_job, ji = sel_jobs[ui][1], 2 * ui + 1
+        elif pick113[ui]:
+            best_job, ji = sel_jobs[ui][0], 2 * ui
+        else:
+            _assign(cand, empty)
+            continue
+        # apply_counts touches exactly the fields set_rr would copy
+        # from a counts-updated clone, so write cand directly
+        apply_counts(cand, best_job)
+        cand._rk = (ds[ji], ms[ji], float(rs[ji]))  # pre-fill ratio cache
+
+
+def _polish_phase(batcher, states, polish_set, cfg) -> None:
+    """Phase 5: polish_repeat then two revision rounds, batched.
+
+    Each item of polish_set is (query, record); records are revised in
+    place.  Mirrors revise_representative_unit (consensus.c:1048-1087):
+    both rounds compare against the PRE-revision ratio."""
+    if not polish_set:
+        return
+    items = []
+    for q, rr in polish_set:
+        org = states[q.read_idx].org
+        input_len = states[q.read_idx].read.length
+        polish_repeat(org, input_len, rr)
+        items.append((q, rr, rr.match_ratio()))
+
+    for scheme in ((5, 1, 1), (1, 1, 3)):
+        # consensus DP on current units
+        consjobs = []
+        tmps = []
+        for q, rr, base_ratio in items:
+            org = states[q.read_idx].org
+            tmp = rr.copy()
+            tmp.match_gain, tmp.mismatch_penalty, tmp.indel_penalty = scheme
+            consjobs.append(
+                DPJob(org, tmp.rep_start, tmp.rep_end, _encode_unit(tmp.string),
+                      scheme, mode="consensus")
+            )
+            tmps.append(tmp)
+        batcher.run(consjobs)
+        # host rebuild (batched argmax), then re-score the revised units
+        rebuild_units_batch(tmps, [job.result for job in consjobs])
+        scorejobs = []
+        score_meta = []
+        for (q, rr, base_ratio), tmp, job in zip(items, tmps, consjobs):
+            if tmp.rep_period < MAX_PERIOD:
+                org = states[q.read_idx].org
+                sj = DPJob(org, tmp.rep_start, tmp.rep_end,
+                           _encode_unit(tmp.string), scheme)
+                scorejobs.append(sj)
+                score_meta.append(((q, rr, base_ratio), tmp, sj))
+        batcher.run(scorejobs)
+        for (q, rr, base_ratio), tmp, sj in score_meta:
+            apply_counts(tmp, sj)
+            if ratio_less(base_ratio, tmp.match_ratio()):
+                _assign(rr, tmp)
+
+
+
+def _live_positions(st) -> np.ndarray:
+    """Candidate-range start positions of a read (collection-time live
+    set: di_end in [0, L) — handle_one_read.c:227-246)."""
+    L = st.read.length
+    return np.nonzero((st.di_end > -1) & (st.di_end < L))[0]
+
+
+def waves_enabled(force=None) -> bool:
+    """Wave-pruning switch: MTR_TPU_WAVES=1 forces on, MTR_TPU_NO_WAVES
+    forces off; otherwise `force` (the adaptive policy's verdict)
+    decides, defaulting to off."""
+    if _env_flag("MTR_TPU_NO_WAVES"):
+        return False
+    if _env_flag("MTR_TPU_WAVES"):
+        return True
+    return bool(force)
+
+
+def waves_policy(walk_s: float | None, dev_idle_s: float | None) -> bool:
+    """Adaptive wave pruning (VERDICT r4 #6): full speculation hides
+    ALL walk work behind the device leg, so pruning only pays when the
+    walk queue is the scarce resource — i.e. the previous batch spent
+    clearly more wall time walking than it spent idle-waiting on the
+    device.  Measured on the 2-core box the device wait dominates and
+    waves lose ~3-8% (PERF.md round 4); on many-core hosts feeding one
+    chip the inequality flips."""
+    if walk_s is None or dev_idle_s is None:
+        return False
+    return walk_s > 2.0 * dev_idle_s + 0.2
+
+
+def wave1_positions(states, cfg=None, force=None):
+    """Wave-1 selection for suppression pruning: the positions that NO
+    earlier range can ever suppress.  A range q < p can only suppress p
+    when its accepted repeat reaches past p's end (rep_end > qe_p with
+    rep_end <= qe_q — handle_one_read.c:178-188), so p is safe iff the
+    running max of earlier ends <= qe_p.
+
+    Default OFF (every position becomes wave 1): pruning cuts total
+    work 20%+ on repeat-dense sets, but on the shipping hybrid engine
+    the wave-2 walks serialize against the device leg that full
+    speculation overlaps, and measured end-to-end it loses ~3-8%
+    (PERF.md round-4 notes).  MTR_TPU_WAVES=1 enables pruning — the
+    right trade when walk CPU is the scarce resource (e.g. many-core
+    hosts feeding one chip, or host-only runs at parity)."""
+    sel = []
+    waves = waves_enabled(force)
+    for st in states:
+        pos = _live_positions(st)
+        if not waves or not len(pos):
+            sel.append(pos)
+            continue
+        qe = st.di_end[pos].astype(np.int64)
+        runmax = np.maximum.accumulate(qe)
+        excl = np.empty_like(runmax)
+        excl[0] = -1
+        excl[1:] = runmax[:-1]
+        # strict <: an equal-end earlier range CAN still suppress p
+        # (rep_end = qs + max_i may reach qe_q + 1, so rep_end > qe_p
+        # is possible when qe_q == qe_p); keeping such positions out of
+        # wave 1 preserves the "no earlier range can suppress" invariant
+        sel.append(pos[excl < qe])
+    return sel
+
+
+def _collect_queries(states, cfg, pos_sel=None):
+    """Phase 2a: flat (read_idx, qs, qe, w, k) arrays for every candidate
+    range x k, built with vectorized repeats (the k sweep is a function
+    of w only — config.k_sweep / handle_one_read.c:104-118).  RangeQuery
+    objects are only materialized for the few % of queries whose walk
+    finds a unit.  pos_sel optionally restricts each read to an explicit
+    position subset (wave pruning)."""
+    lo_small = cfg.min_kmer - 3
+    lo_big = cfg.min_kmer
+    hi_small = cfg.max_kmer - 5
+    hi_mid = cfg.max_kmer - 3
+    hi_big = cfg.max_kmer
+    chunks = []
+    for ridx, st in enumerate(states):
+        pos = (_live_positions(st) if pos_sel is None else pos_sel[ridx])
+        if not len(pos):
+            continue
+        qe = st.di_end[pos].astype(np.int64)
+        w = st.di_w[pos].astype(np.int64)
+        k_lo = np.where(w < 1000, lo_small, lo_big)
+        k_hi = np.where(w < 100, hi_small, np.where(w < 1000, hi_mid, hi_big))
+        counts = k_hi - k_lo + 1
+        total = int(counts.sum())
+        # per-segment aranges: offset within each range's k run
+        seg_start = np.repeat(np.cumsum(counts) - counts, counts)
+        ks = np.repeat(k_lo, counts) + (np.arange(total) - seg_start)
+        chunks.append((
+            np.full(total, ridx, np.int32),
+            np.repeat(pos, counts).astype(np.int32),
+            np.repeat(qe, counts).astype(np.int32),
+            np.repeat(w, counts).astype(np.int32),
+            ks.astype(np.int32),
+        ))
+    if not chunks:
+        z = np.zeros(0, np.int32)
+        return z, z, z, z, z
+    return tuple(np.concatenate([c[i] for c in chunks]) for i in range(5))
+
+
+
+def _accepts(rr: RepeatRecord | None) -> bool:
+    """Acceptance gate of handle_one_read.c:239-240."""
+    return (
+        rr is not None
+        and rr.repeat_len > 0
+        and rr.rep_start + MIN_PERIOD * MIN_NUM_FREQ_UNIT < rr.rep_end
+    )
+
+
+def _process_wave(states, batcher, cfg, queries, range_result) -> None:
+    """Phases 3-6a for one wave of walk queries: batched DP scheme
+    selection, acceptance gates, polish/revision rounds, k-sweep
+    selection.  Merges per-range winners into range_result (keyed
+    (read_idx, qs, qe); value None = computed but no qualifying
+    record)."""
+    # phase 3+4a: scheme selection for every candidate
+    _wrap_dp_schemes(batcher, [(q, states[q.read_idx].org) for q in queries])
+
+    # phase 4b: direction selection + gates -> per-query result; build
+    # polish set (queries without candidates were never materialized =
+    # cleared records)
+    polish_set = []
+    for q in queries:
+        if not q.candidates or q.found == 0:
+            q.result = None
+            continue
+        st = states[q.read_idx]
+        rr = RepeatRecord()
+        rr.read_id = st.read.read_id
+        rr.input_len = st.read.length
+        rr.kmer = q.k
+        select_dp_candidate(rr, q.candidates, cfg.min_match_ratio)
+        if rr.rep_period * (q.qe - q.qs + 1) > cfg.wrap_dp_size:
+            q.result = None
+            continue
+        q.result = rr
+        coverage = rr.repeat_len // rr.rep_period
+        if 5 <= coverage <= 20 and rr.rep_period > 5:
+            polish_set.append((q, rr))
+
+    # phase 5: polish + revision rounds
+    with TIMERS.section("polish"):
+        _polish_phase(batcher, states, polish_set, cfg)
+
+    # phase 6a: k-sweep selection per range
+    by_range: dict[tuple[int, int, int], list[RangeQuery]] = defaultdict(list)
+    for q in queries:
+        by_range[(q.read_idx, q.qs, q.qe)].append(q)
+    for key, qs_list in by_range.items():
+        best = None
+        max_ratio = -1.0
+        for q in sorted(qs_list, key=lambda x: x.k):
+            tmp = q.result
+            if tmp is None:
+                continue  # cleared records never pass the filters below
+            r = tmp.match_ratio()
+            if (
+                ratio_less(max_ratio, r)
+                and cfg.min_match_ratio <= r
+                and tmp.num_freq_unit > MIN_NUM_FREQ_UNIT
+                and MIN_PERIOD <= tmp.rep_period
+            ):
+                max_ratio = r
+                best = tmp
+        range_result[key] = best
+
+
+MAX_WAVES = 6
+
+
+def _cons_span(unit_len: int) -> int:
+    """The consensus kernels' unit span for a job: the smallest of
+    128 / 256 / 512 (one thread per unit column)."""
+    for u in CONS_SPANS:
         if unit_len <= u:
             return u
     raise ValueError(f"unit_len {unit_len} exceeds the largest span "
-                     f"{U_SPANS[-1]}")
+                     f"{CONS_SPANS[-1]}")
 
 
 def _factor(schemes) -> int:
@@ -103,9 +539,9 @@ def _cap_parts(rep_lens: list[int], u_span: int) -> list[int]:
 class TorchDPBatcher:
     """DP jobs on one torch device (counterpart of
     mtr_tpu.pipeline.WrapDPBatcher).  The batch's reads are uploaded once
-    (begin_batch); each run groups its jobs by mode and unit span, longest
-    first, launches the counts kernel once per span and the consensus
-    kernels once per span (cut to MOVES_BYTES_CAP of move scratch), and
+    (begin_batch); each run sorts its jobs longest first, launches the
+    counts kernel once for all counts jobs and the consensus kernels once
+    per unit span (cut to MOVES_BYTES_CAP of move scratch), and
     copies each mode's results back to the host in one transfer.  On a CPU
     device the ops run their plain versions (tests)."""
 
@@ -151,15 +587,21 @@ class TorchDPBatcher:
     def _run(self, jobs: list[DPJob]) -> None:
         if not jobs:
             return
+        # counts jobs: one launch for all of them (the kernel sizes each
+        # job's columns a lane itself); consensus jobs: one per span, cut
+        # to MOVES_BYTES_CAP of move scratch
         groups: dict = {"counts": defaultdict(list),
                         "consensus": defaultdict(list)}
         for idx, job in enumerate(jobs):
-            groups[job.mode][_u_span(len(job.unit))].append(idx)
+            key = 0 if job.mode == "counts" else _cons_span(len(job.unit))
+            groups[job.mode][key].append(idx)
         parts: dict = {"counts": [], "consensus": []}
         outs: dict = {"counts": [], "consensus": []}
         for mode, by_span in groups.items():
             for u_span, idxs in sorted(by_span.items()):
-                # longest-first: the longest blocks start first
+                if mode == "counts":
+                    u_span = u_span_for(max(len(jobs[i].unit) for i in idxs))
+                # longest-first: the longest jobs start first
                 idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
                 cuts = ([len(idxs)] if mode == "counts" else _cap_parts(
                     [jobs[i].qe - jobs[i].qs + 1 for i in idxs], u_span))
@@ -203,7 +645,7 @@ class TorchDPBatcher:
             unit = jobs[part[rows[0]]].unit
             units[np.asarray(rows), : len(unit)] = unit
             scal[rows, 1] = len(unit)
-        self._check_bounds(scal, starts, u_span)
+        self._check_bounds(scal, starts, u_span, mode)
         with TIMERS.section("dp_dispatch"):
             dev = self.device
             args = (
@@ -227,8 +669,10 @@ class TorchDPBatcher:
             self.cons_cells += cells
         return out
 
-    def _check_bounds(self, scal, starts, u_span) -> None:
-        """The kernels' own bounds (one block per job, unpacked int32)."""
+    def _check_bounds(self, scal, starts, u_span, mode="counts") -> None:
+        """The kernels' own bounds (unpacked int32).  The value bound is
+        per job: the counts kernel carries D[j] + ip*j over 32*C columns,
+        C = ceil(unit_len / 32); the consensus kernels over u_span."""
         rep_len = scal[:, 0].astype(np.int64)
         mg, ip = scal[:, 2].astype(np.int64), scal[:, 4].astype(np.int64)
         if (rep_len > R_MAX).any():
@@ -237,8 +681,10 @@ class TorchDPBatcher:
             raise ValueError(f"unit_len above the span {u_span}")
         if (ip < 1).any():
             raise ValueError("indel penalty must be >= 1")
-        if (rep_len * mg + ip * u_span >= VALUE_LIMIT).any():
-            raise ValueError("rep_len*mg + ip*u_span overflows int32")
+        span = (32 * np.maximum(1, -(-scal[:, 1].astype(np.int64) // 32))
+                if mode == "counts" else u_span)
+        if (rep_len * mg + ip * span >= VALUE_LIMIT).any():
+            raise ValueError("rep_len*mg + ip*span overflows int32")
         if (starts < 0).any() or (starts + rep_len > len(self._flat)).any():
             raise ValueError("rep segment outside the resident reads")
 
@@ -368,22 +814,19 @@ def _need_cuda(backend: str) -> None:
 
 
 def make_batcher(cfg: MTRConfig):
-    """Pick the DP engine: `host` is the native engine, `hybrid` the
-    torch hybrid on the CUDA card, `device` every DP job on the card,
-    `auto` the hybrid where a card is present and the host engine
-    elsewhere."""
+    """Pick the DP engine: `host` is the native engine, `hybrid` (and
+    `auto`, the default) the torch hybrid on the CUDA card, `device` every
+    DP job on the card.  Without a card, auto raises as hybrid and device
+    do: the CPU is asked for by name (`host`, or a TorchDPBatcher on a
+    CPU device)."""
     if cfg.backend == "host":
         return HostDPBatcher()
-    if cfg.backend == "hybrid":
-        _need_cuda("hybrid")
+    if cfg.backend in ("hybrid", "auto"):
+        _need_cuda(cfg.backend)
         return TorchHybridDPBatcher(torch.device("cuda"))
     if cfg.backend == "device":
         _need_cuda("device")
         return TorchDPBatcher(torch.device("cuda"))
-    if cfg.backend == "auto":
-        if torch.cuda.is_available():
-            return TorchHybridDPBatcher(torch.device("cuda"))
-        return HostDPBatcher()
     raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
@@ -724,7 +1167,7 @@ def run_file(
                 if record_sink is not None:
                     record_sink(rec)
                 if cfg.print_alignment:
-                    from mtr_tpu.pretty import pretty_print_alignment
+                    from mtr_tpu_torch.pretty import pretty_print_alignment
 
                     out.write("\n")
                     pretty_print_alignment(st.org, rec, out)

@@ -13,7 +13,7 @@ import torch
 
 from mtr_tpu import native
 from mtr_tpu.ops import dbg_device as jd
-from mtr_tpu.utils.timers import TIMERS
+from mtr_tpu_torch.utils.timers import TIMERS
 from mtr_tpu_torch.ops import dbg_device as td
 from tests.test_dbg_device import make_read
 

@@ -3,8 +3,8 @@ goldens byte for byte, on the host engine, on the torch hybrid with its
 device leg engaged (and with its walk pre-filter), and on the device
 backend (every DP job, DI and the DBG walks on the torch device, every
 wave included), with the plain PyTorch ops on CPU tensors; backend
-selection raises rather than falling back; the package runs with JAX
-blocked."""
+selection raises rather than falling back (auto included); the package
+runs with JAX and mtr_tpu blocked."""
 
 import io
 import os
@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from mtr_tpu.config import MTRConfig
-from mtr_tpu.pipeline import DPJob, HostDPBatcher
-from mtr_tpu.utils.timers import TIMERS
 from mtr_tpu_torch import pipeline as tp
+from mtr_tpu_torch.config import MTRConfig
+from mtr_tpu_torch.pipeline import DPJob, HostDPBatcher
+from mtr_tpu_torch.utils.timers import TIMERS
 from mtr_tpu_torch.ops import dbg_device, directional_index, wrap_dp_resident
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -125,7 +125,7 @@ def test_cli_host_and_refusals(capsys):
         return  # the refusals below are those of a machine without a card
     # the CLI's device backend runs everything on the card: without one
     # it exits 1 with the no-CUDA message, and prints no record
-    for backend in ("device", "hybrid"):
+    for backend in ("device", "hybrid", "auto"):
         assert cli.main(["--backend", backend, fasta]) == 1
         got = capsys.readouterr()
         assert "needs a CUDA device" in got.err and not got.out
@@ -135,10 +135,9 @@ def test_cuda_requests_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the CPU-only "
                     "refusal")
-    with pytest.raises(tp.BackendUnavailable, match="CUDA"):
-        tp.make_batcher(MTRConfig(backend="hybrid"))
-    assert isinstance(tp.make_batcher(MTRConfig(backend="auto")),
-                      HostDPBatcher)
+    for backend in ("hybrid", "auto"):
+        with pytest.raises(tp.BackendUnavailable, match="CUDA"):
+            tp.make_batcher(MTRConfig(backend=backend))
     batcher = tp.TorchDPBatcher(torch.device("cuda"))
     with pytest.raises((RuntimeError, AssertionError)):
         batcher.begin_batch([np.zeros(100, np.int32)])
@@ -355,18 +354,38 @@ import importlib.abc, io, sys
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if name in ("jax", "mtr_tpu") or name.startswith(
+                ("jax.", "jaxlib", "mtr_tpu.")):
             raise ImportError(f"blocked import of {name}")
 
 sys.meta_path.insert(0, _Block())
 import mtr_tpu_torch, mtr_tpu_torch.pipeline, mtr_tpu_torch.cli
-from mtr_tpu.config import MTRConfig
+from mtr_tpu_torch.config import MTRConfig
 out = io.StringIO()
 mtr_tpu_torch.pipeline.run_file(sys.argv[1] + ".fasta",
                                 MTRConfig(backend="host"), out)
 assert out.getvalue() == open(sys.argv[1] + ".out").read()
 recs = mtr_tpu_torch.find_repeats("ACGTTT" * 50, MTRConfig(backend="host"))
 assert len(recs) == 1
+# the CLI on the CPU backends and the clustering stage; the oracle (about
+# 13 s a read here) on the set's first read
+import contextlib, os, tempfile
+golden = open(sys.argv[1] + ".out").read()
+fasta = open(sys.argv[1] + ".fasta").read().split(">")
+with tempfile.NamedTemporaryFile("w", suffix=".fasta", delete=False) as f:
+    f.write(">" + fasta[1])
+first = "".join(l for l in golden.splitlines(True) if l.startswith("0\t"))
+for argv, path, want in (
+        (["--backend", "host"], sys.argv[1] + ".fasta", golden),
+        (["--backend", "host", "--cluster"], sys.argv[1] + ".fasta", golden),
+        (["--backend", "oracle"], f.name, first)):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert mtr_tpu_torch.cli.main(argv + [path]) == 0
+    text = buf.getvalue()
+    assert text.startswith(want) and want, argv
+    assert ("#CLUSTER" in text) == ("--cluster" in argv), argv
+os.unlink(f.name)
 # the device path on CPU tensors: every DP job, the DI and the walks on
 # torch
 import os, random, tempfile
@@ -396,7 +415,8 @@ fused, best = wrap_dp_consensus(
     torch.tensor([[8, 3, 5, 1, 1, 0, 0, 0]], dtype=torch.int32),
     torch.tensor([[0, 1, 2] + [-2] * 125], dtype=torch.int8), 128, 6)
 assert int(fused[0, 1:4, :3].trace()) > 0
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+assert not any(m in ("jax", "mtr_tpu") or m.startswith(("jax.", "mtr_tpu."))
+               for m in sys.modules)
 print("NO_JAX_OK")
 """
 
@@ -406,6 +426,6 @@ def test_package_runs_with_jax_blocked():
     r = subprocess.run(
         [sys.executable, "-c", _NO_JAX,
          os.path.join(GOLDEN, "multi20_100x10")],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr
     assert "NO_JAX_OK" in r.stdout
