@@ -13,10 +13,12 @@ Phases, in order; any failure exits non-zero before the result line:
      in one mixed launch) and against the native host engine at main-path
      sizes and past rep_len 32,768, with zero tolerance: the results are
      integers;
-  2b. the consensus kernels (fill + traceback) against their plain
-     versions on the card (units 2-500, three schemes, rep_len <= 2048,
-     degenerate jobs: best and the (B, 500, 9) polish tensor) and against
-     the native host engine at polish sizes, with zero tolerance;
+  2b. the consensus kernel (fill + traceback in one launch) against its
+     plain versions on the card (units 2-500, three schemes, rep_len <=
+     2048, degenerate jobs; a launch per C, then all in one launch: best,
+     the (B, 500, 9) polish tensor and the packed move scratch against
+     pack_moves of the plain fill's moves) and against the native host
+     engine at polish sizes, with zero tolerance;
   3. the hybrid path: the port's hybrid engine on the bench's 200 bp x
      200 copy set (20 reads of ~120 kb) and the port's host backend on
      this machine's CPU, each byte-identical to
@@ -49,11 +51,20 @@ Phases, in order; any failure exits non-zero before the result line:
   4d. the hybrid's bench run under torch.profiler with the counts kernel
      and with its first design: counts-kernel device time, launches, jobs
      and longest rep_len a launch;
-  4b. consensus kernel times (fill + traceback, and the fill alone) with
-     CUDA events, bound, the plain version's time, and one device-DI pass;
-  4c. the walk kernel's time with CUDA events on the jobs of one bench
-     chunk, its bound, and against stage_b_plain on a subset of them.
+  4b. every consensus launch of phase 3c's bench run (its inputs recorded
+     by Spies) replayed with CUDA events, the first design
+     (csrc/wrap_dp_consensus_v1.cu) and the kernel in turns: ms a launch,
+     the run's sum, the three heaviest launches, bound and share; the
+     kernel against the plain version on the heaviest launch (zero
+     tolerance) and the plain version's time there;
+  4c. every walk launch of that run replayed the same way against the
+     first design (csrc/dbg_walk_v1.cu), with jobs, V bucket, table rows
+     and longest walk a launch; then, heaviest first within
+     WALK_PLAIN_BUDGET_S, the kernel against stage_b_plain on the launch
+     (zero tolerance) and the lookups and steps stage_b_plain counts
+     there, for the bound; one device-DI pass.
 
+The replayed launches' rows are written to build/chip_smoke/*_launches.json.
 Each path of phase 3 sets the kernels' launch counts to 0 before it runs
 and fails if a kernel of that path was not launched.  A path whose output
 differs from its golden prints the first differing line.
@@ -95,6 +106,10 @@ BENCH_READS = 20  # the bench set's reads (bench.py:87-91)
 BENCH_ARGS = (200, 200, 9.7, 2.9, 7.5, 40000, 40000, BENCH_READS)
 WALK_REPLACES = "mtr_tpu/ops/dbg_device.py:132 (_stage_b)"
 WALK_UNITS = (2, 3, 7, 15, 33, 60, 95, 120)
+# seconds of stage_b_plain on the replayed walk launches (heaviest first)
+# for the bound's lookups and steps and the check against the kernel; the
+# bench run's 60 launches took ~200 s in all on an H100
+WALK_PLAIN_BUDGET_S = 240.0
 WHALE_WIDTHS = (2048, 5000, 12000, 38371)
 
 
@@ -322,14 +337,20 @@ def kernel_vs_references():
 
 
 def consensus_vs_references():
-    """Returns the largest absolute difference seen (must be 0)."""
+    """Phase 2b.  Returns the largest absolute difference seen (must be
+    0)."""
     import numpy as np
     import torch
 
     from mtr_tpu_torch import native
-    from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
-    from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
-    from mtr_tpu_torch.pipeline import _cons_span, _factor
+    from mtr_tpu_torch.ops import wrap_dp_consensus as cop
+    from mtr_tpu_torch.ops.wrap_dp_counts import u_span_for
+    from mtr_tpu_torch.ops.wrap_dp_resident import (
+        _pow2_units,
+        consensus_resident_plain,
+        gather_segments,
+    )
+    from mtr_tpu_torch.pipeline import _factor
 
     rng = np.random.default_rng(20241)
     worst = 0
@@ -338,29 +359,50 @@ def consensus_vs_references():
         t = [torch.from_numpy(a).cuda() for a in make_batch(jobs, u_span)]
         factor = _factor(s for _, _, s in jobs)
         fn = consensus_resident_plain if plain else (
-            lambda *a: wrap_dp_consensus(*a[:4], u_span, a[4]))
+            lambda *a: cop.wrap_dp_consensus(*a[:4], u_span, a[4]))
         fused, best = fn(*t, factor)
         torch.cuda.synchronize()
         return fused.cpu().numpy(), best.cpu().numpy()
 
-    # (a) against the plain version on the card, rep_len <= 2048
+    def packed_moves_differ(jobs, u_span):
+        """The kernel's packed move scratch against pack_moves of the
+        plain fill's moves: the number of differing bytes."""
+        flat, starts, scal, unit = (torch.from_numpy(a).cuda() for a in
+                                    make_batch(jobs, u_span))
+        launch, (_, _, done, moves, mv_off) = cop.prepare(
+            flat, starts, scal, unit, u_span, _factor(s for _, _, s in jobs))
+        launch()
+        r_pad = max(1, int(scal[:, 0].max()))
+        want_mv, _ = cop.wrap_dp_fill_plain(
+            scal, gather_segments(flat, starts, r_pad).to(torch.int32),
+            _pow2_units(unit).to(torch.int32))
+        want, want_off = cop.pack_moves(want_mv, scal.cpu())
+        got = moves[: want.numel()].cpu()
+        check(bool(done.all()), "consensus kernel left a walk unfinished")
+        check(torch.equal(mv_off.cpu(), want_off), "move offsets differ")
+        return int((got != want).sum())
+
+    # (a) against the plain version on the card, rep_len <= 2048: a launch
+    # per C, then every job in one launch
     by_span: dict = {}
     for ul in CONS_UNIT_LENS:
         for scheme in SCHEMES:
             unit = rng.integers(0, 4, ul).astype(np.int8)
             rl = int(rng.integers(ul, 2049))
-            by_span.setdefault(_cons_span(ul), []).extend([
+            by_span.setdefault(u_span_for(ul), []).extend([
                 (periodic_rep(rng, unit, rl), unit, scheme),
                 (rng.integers(0, 4, int(rng.integers(1, 2049))).astype(
                     np.int8), unit, scheme),
             ])
     for scheme in SCHEMES:  # degenerate: rep_len 1 and 0, unit_len 2
-        by_span[128] += [
+        by_span[32] += [
             (np.array([1], np.int8), np.array([1, 2], np.int8), scheme),
             (np.array([3], np.int8), np.array([3, 3], np.int8), scheme),
             (np.zeros(0, np.int8), np.array([0, 0], np.int8), scheme),
         ]
-    for u_span, jobs in sorted(by_span.items()):
+    every = sorted((j for js in by_span.values() for j in js),
+                   key=lambda j: -len(j[0]))
+    for u_span, jobs in sorted(by_span.items()) + [(512, every)]:
         got, got_best = run(jobs, u_span)
         want, want_best = run(jobs, u_span, plain=True)
         diff = np.abs(got.astype(np.int64) - want).reshape(len(jobs), -1)
@@ -368,11 +410,13 @@ def consensus_vs_references():
         bad = int(((diff.max(axis=1) > 0) | (diff_best.max(axis=1) > 0))
                   .sum())
         worst = max(worst, int(diff.max()), int(diff_best.max()))
+        n_mv = packed_moves_differ(jobs, u_span)
         info(f"consensus kernel vs plain on the card, u_span {u_span}: "
              f"{len(jobs)} jobs, rep_len <= "
-             f"{max(len(r) for r, _, _ in jobs)}, {bad} mismatching")
-        check(bad == 0, f"consensus kernel disagrees with the plain version "
-              f"(u_span {u_span})")
+             f"{max(len(r) for r, _, _ in jobs)}, {bad} mismatching, "
+             f"{n_mv} packed move bytes differing")
+        check(bad == 0 and n_mv == 0, f"consensus kernel disagrees with the "
+              f"plain version (u_span {u_span})")
 
     # (b) against the native host engine at polish sizes
     jobs = []
@@ -380,11 +424,7 @@ def consensus_vs_references():
         unit = rng.integers(0, 4, ul).astype(np.int8)
         for scheme in SCHEMES:
             jobs.append((periodic_rep(rng, unit, rl), unit, scheme))
-    got = np.zeros((len(jobs), 500, 9), np.int32)
-    for u_span in sorted({_cons_span(len(u)) for _, u, _ in jobs}):
-        idx = [q for q, (_, u, _) in enumerate(jobs)
-               if _cons_span(len(u)) == u_span]
-        got[idx] = run([jobs[q] for q in idx], u_span)[0]
+    got = run(jobs, u_span_for(max(len(u) for _, u, _ in jobs)))[0]
     orgs = [np.concatenate([[0], rep]).astype(np.int32)
             for rep, _, _ in jobs]
     units = np.zeros((len(jobs), 500), np.int32)
@@ -523,8 +563,7 @@ def bench_batch_queries(fasta):
 
 def walk_vs_references(fasta):
     """Phase 2c.  Returns the largest absolute difference and the number
-    of mismatching jobs (both must be 0), and the bench batch (orgs, lens,
-    queries) for phase 4c."""
+    of mismatching jobs (both must be 0)."""
     import numpy as np
     import torch
 
@@ -574,7 +613,7 @@ def walk_vs_references(fasta):
          f"unit rows, fields differing: {diff or 'none'} (device "
          f"{dt_dev:.3f} s incl. first use, native {dt_nat:.3f} s)")
     check(not diff, "dbg_walk_device_batch disagrees with the native engine")
-    return worst, tot["bad"], (b_orgs, b_lens, (ridx, qs, qe, k))
+    return worst, tot["bad"]
 
 
 def timer_snapshot():
@@ -743,7 +782,8 @@ def read_counts():
 def device_walk_path(fasta, golden):
     """Phase 3c: run_file under backend "device" with the DBG walks on the
     card, on the bench set and the 100x10 golden, then the CLI; returns
-    the launch counts of the bench run."""
+    the launch counts of the bench run and its Spies (every walk and
+    consensus launch's inputs)."""
     import io
 
     from mtr_tpu_torch.config import MTRConfig
@@ -754,10 +794,11 @@ def device_walk_path(fasta, golden):
     batcher = make_batcher(cfg)
     before_t, before_c = timer_snapshot(), dict(TIMERS.counters)
     reset_counts()
-    t0 = time.perf_counter()
-    out = io.StringIO()
-    run_file(fasta, cfg, out, batcher=batcher)
-    dt = time.perf_counter() - t0
+    with Spies() as spies:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        run_file(fasta, cfg, out, batcher=batcher)
+        dt = time.perf_counter() - t0
     launches = read_counts()
     spent, counted = timer_delta(before_t), counter_delta(before_c)
     n_q = counted.get("speculative_queries", 0)
@@ -800,7 +841,291 @@ def device_walk_path(fasta, golden):
          f"{dt:.3f} s in a new process")
     check(r.returncode == 0, f"the CLI failed: {r.stderr[-2000:]}")
     same_as_golden(r.stdout, golden, "CLI --backend device")
-    return launches
+    return launches, spies
+
+
+class Spies:
+    """Records the inputs of every walk- and consensus-op call of a run.
+    Their callers (ops/dbg_device._run_chunk, TorchDPBatcher._dispatch)
+    look the ops up at call time, so a stand-in that records its
+    arguments and calls the real op sees every launch.  Holding the
+    arguments keeps each launch's tables alive on the card (a few GB a
+    bench run)."""
+
+    def __enter__(self):
+        from mtr_tpu_torch import pipeline as tp
+        from mtr_tpu_torch.ops import dbg_device as dw
+
+        self.walks, self.cons = [], []
+        self._real = real_walk, real_cons = dw.dbg_walk, tp.wrap_dp_consensus
+
+        def walk(*args):
+            self.walks.append(args)
+            return real_walk(*args)
+
+        def cons(*args):
+            self.cons.append(args)
+            return real_cons(*args)
+
+        dw.dbg_walk, tp.wrap_dp_consensus = walk, cons
+        return self
+
+    def __exit__(self, *exc):
+        from mtr_tpu_torch import pipeline as tp
+        from mtr_tpu_torch.ops import dbg_device as dw
+
+        dw.dbg_walk, tp.wrap_dp_consensus = self._real
+        return False
+
+
+def event_ms(fn, n):
+    """CUDA-event ms of one fn() (kernel launches with no host sync
+    inside), over n back-to-back calls after one warm-up."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def in_turns(variants, n):
+    """{name: ms} of each bare launcher, timed in turns (a, b, b, a), the
+    least of each name's two turns."""
+    names = list(variants)
+    ms = {name: [] for name in names}
+    for name in names + names[::-1]:
+        ms[name].append(event_ms(variants[name], n))
+    return {name: min(v) for name, v in ms.items()}
+
+
+def walk_stats(args, outs):
+    """Per walk launch: jobs, V bucket, table rows, steps walked (a found
+    walk its period, else lmax), the longest walk, and the same over the
+    jobs the batch reads (ranks at or before their (row, direction)
+    group's winner; every job of a group without one)."""
+    sv, _, tq, _, is_fwd, _, lmax = (a.cpu().numpy() if a.dim() == 1 else a
+                                     for a in args)
+    found, period = outs[0].cpu().numpy(), outs[1].cpu().numpy()
+    steps = np.where(period > 0, period, lmax).astype(np.int64)
+    n = len(tq)
+    first = np.r_[True, (tq[1:] != tq[:-1]) | (is_fwd[1:] != is_fwd[:-1])]
+    gid = np.cumsum(first) - 1
+    start = np.nonzero(first)[0]
+    rank = np.arange(n) - start[gid]
+    big = np.int64(1) << 40
+    win = np.minimum.reduceat(np.where(found, rank, big), start)
+    read = rank <= win[gid]
+    return {"jobs": n, "v_pad": int(sv.shape[1]), "rows": int(sv.shape[0]),
+            "table_mb": sv.numel() * 8 / 1e6,
+            "steps": int(steps.sum()), "max_steps": int(steps.max()),
+            "steps_read": int(steps[read].sum()),
+            "max_steps_read": int(steps[read].max())}
+
+
+def walk_bound(args, lookups, steps):
+    """The walk's bound on one launch: (lookups x (ceil(log2 v_pad) + 1)
+    x 2 + steps x 20) int32 operations; bytes: the tables and job rows
+    read once, a job's found / period / ovf and a step's unit and score
+    written once."""
+    sv, adj = args[:2]
+    v_pad = sv.shape[1]
+    ops = lookups * ((v_pad - 1).bit_length() + 1) * 2 + steps * 20
+    n_bytes = (2 * sv.numel() * 4 + 5 * args[2].numel() * 4
+               + args[2].numel() * 6 + steps * 8)
+    return bound_ms(ops, n_bytes)
+
+
+def cons_bound(scal):
+    """The consensus bound on one launch: 20 int32
+    operations a fill cell and 10 a traceback step (rep_len + unit_len
+    steps a job); bytes: the rep codes read and the (B, 500, 9) blocks
+    written."""
+    rep_len, unit_len = scal[:, 0].astype(np.int64), scal[:, 1]
+    ops = int((rep_len * unit_len * 20 + (rep_len + unit_len) * 10).sum())
+    return bound_ms(ops, int(rep_len.sum()) + len(scal) * 500 * 9 * 4)
+
+
+def bare_walk(fn, args):
+    """A bare launcher of a walk kernel entry with the first design's C
+    signature on one launch's inputs, and its outputs (allocated once,
+    zeroed: the kernel writes only the steps walked)."""
+    import ctypes
+
+    import torch
+
+    sv, adj, tq, node0, is_fwd, k, lmax = args
+    J, dev = tq.numel(), sv.device
+    outs = (torch.zeros(J, dtype=torch.bool, device=dev),
+            torch.zeros(J, dtype=torch.int32, device=dev),
+            torch.zeros((J, 500), dtype=torch.int32, device=dev),
+            torch.zeros((J, 500), dtype=torch.int32, device=dev),
+            torch.zeros(J, dtype=torch.bool, device=dev))
+    ptrs = ([sv.data_ptr(), adj.data_ptr(), sv.shape[1]]
+            + [a.data_ptr() for a in (tq, node0, is_fwd, k, lmax)] + [J]
+            + [o.data_ptr() for o in outs]
+            + [ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)])
+
+    def run():
+        err = fn(*ptrs)
+        check(err == 0, f"walk kernel launch failed: CUDA error {err}")
+
+    return run, outs
+
+
+def bare_cons_v1(lib, args):
+    """A bare launcher of the consensus kernels' first design (fill +
+    traceback, csrc/wrap_dp_consensus_v1.cu) on one launch's inputs: its
+    jobs split by span 128 / 256 / 512 as the first design's batcher
+    launched them, unit rows padded to the span."""
+    import ctypes
+
+    import torch
+
+    flat, starts, scal, unit, u_span, factor = args
+    ul = scal[:, 1].cpu().numpy()
+    span_of = np.select([ul <= 128, ul <= 256], [128, 256], 512)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    calls = []
+    for span in (128, 256, 512):
+        idx = torch.from_numpy(np.nonzero(span_of == span)[0]).cuda()
+        if not idx.numel():
+            continue
+        b = idx.numel()
+        st, sc = starts[idx].contiguous(), scal[idx].contiguous()
+        un = torch.full((b, span), -2, dtype=torch.int8, device=flat.device)
+        w = min(span, unit.shape[1])
+        un[:, :w] = unit[idx, :w]
+        sizes = sc[:, 0].long() * span
+        mv_off = torch.cumsum(sizes, 0) - sizes
+        moves = torch.empty(max(int(sizes.sum()), 1), dtype=torch.uint8,
+                            device=flat.device)
+        best = torch.empty((b, 8), dtype=torch.int32, device=flat.device)
+        max_rep = sc[:, 0].amax().reshape(1)
+        out = torch.zeros((b, 500, 9), dtype=torch.int32, device=flat.device)
+        done = torch.empty(b, dtype=torch.int32, device=flat.device)
+        calls.append((
+            (span, flat.data_ptr(), st.data_ptr(), sc.data_ptr(),
+             un.data_ptr(), mv_off.data_ptr(), max_rep.data_ptr(),
+             moves.data_ptr(), best.data_ptr(), b, stream),
+            (span, flat.data_ptr(), st.data_ptr(), sc.data_ptr(),
+             mv_off.data_ptr(), moves.data_ptr(), best.data_ptr(), factor,
+             out.data_ptr(), done.data_ptr(), b, stream),
+            (st, sc, un, mv_off, moves, best, max_rep, out, done)))
+
+    def run():
+        for fill_args, tb_args, _ in calls:
+            err = lib.mtr_wrap_dp_consensus_v1_fill(*fill_args)
+            err = err or lib.mtr_wrap_dp_consensus_v1_traceback(*tb_args)
+            check(err == 0, f"consensus v1 launch failed: CUDA error {err}")
+
+    return run
+
+
+def replay_walks(walks, budget_s):
+    """Phase 4c: every walk launch of the device-whole bench run replayed
+    on its own inputs, the first design ("before", csrc/dbg_walk_v1.cu)
+    and the kernel ("now") in turns with CUDA events; launch statistics;
+    then, heaviest launches first (by "now") and within budget_s of plain
+    time, the kernel against stage_b_plain on the launch (zero tolerance)
+    and the lookups and steps stage_b_plain counts there, for the bound.
+    Returns one dict a launch."""
+    import torch
+
+    from mtr_tpu_torch.ops import _build
+    from mtr_tpu_torch.ops import dbg_device as dw
+
+    base = _build.baseline_library()
+    rows = []
+    for n, args in enumerate(walks):
+        runs = {"before": bare_walk(base.mtr_dbg_walk_v1, args),
+                "now": dw.prepare(*args)}
+        ms = in_turns({name: r[0] for name, r in runs.items()}, 2)
+        rows.append({"launch": n, **walk_stats(args, runs["before"][1]),
+                     "ms": ms})
+        del runs
+    spent = 0.0
+    for row in sorted(rows, key=lambda r: -r["ms"]["now"]):
+        if spent > budget_s:
+            break
+        args = walks[row["launch"]]
+        launch, got = dw.prepare(*args)
+        launch()
+        dw.PLAIN_WORK.update(lookups=0, steps=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = dw.stage_b_plain(*args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        spent += dt
+        bad = torch.zeros(args[2].numel(), dtype=torch.bool,
+                          device=args[2].device)
+        for g, w in zip(got, want):
+            bad |= (g.long() != w.long()).reshape(len(bad), -1).any(1)
+        row.update(plain_ms=dt * 1e3, mismatches=int(bad.sum()),
+                   lookups=dw.PLAIN_WORK["lookups"],
+                   plain_steps=dw.PLAIN_WORK["steps"])
+        row["bound_ms"], row["bound_by"] = walk_bound(
+            args, row["lookups"], row["plain_steps"])
+    return rows
+
+
+def replay_cons(cons):
+    """Phase 4b: every consensus launch of the device-whole bench run
+    replayed on its own inputs, the first design ("before",
+    csrc/wrap_dp_consensus_v1.cu, its jobs split by span as its batcher
+    launched them) and the kernel ("now") in turns with CUDA events; then
+    the kernel against the plain version on the heaviest launch (zero
+    tolerance) and the plain version's time there.  Returns one dict a
+    launch."""
+    import torch
+
+    from mtr_tpu_torch.ops import _build
+    from mtr_tpu_torch.ops import wrap_dp_consensus as cop
+    from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
+
+    base = _build.baseline_library()
+    rows = []
+    for n, args in enumerate(cons):
+        scal = args[2].cpu().numpy()
+        ms = in_turns({"before": bare_cons_v1(base, args),
+                       "now": cop.prepare(*args)[0]}, 3)
+        bms, by = cons_bound(scal)
+        rows.append({"launch": n, "jobs": len(scal), "u_span": args[4],
+                     "max_rep_len": int(scal[:, 0].max()),
+                     "max_unit": int(scal[:, 1].max()),
+                     "cells": int((scal[:, 0].astype(np.int64)
+                                   * scal[:, 1]).sum()),
+                     "ms": ms, "bound_ms": bms, "bound_by": by})
+    row = max(rows, key=lambda r: r["ms"]["now"])
+    flat, starts, scal, unit, u_span, factor = cons[row["launch"]]
+    launch, (fused, best, done, _, _) = cop.prepare(*cons[row["launch"]])
+    launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_best = consensus_resident_plain(flat, starts, scal, unit,
+                                               factor)
+    torch.cuda.synchronize()
+    row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    diff = torch.maximum(
+        (fused.long() - want.long()).abs().reshape(len(scal), -1).amax(1),
+        (best.long() - want_best.long()).abs().amax(1))
+    row["mismatches"] = int((diff > 0).sum()) + int((done == 0).sum())
+    row["max_abs_err"] = int(diff.max())
+    return rows
+
+
+def run_summary(rows):
+    """The run's sum for each design, and the three heaviest launches of
+    the kernel."""
+    sums = {name: sum(r["ms"][name] for r in rows)
+            for name in ("before", "now")}
+    return sums, sorted(rows, key=lambda r: -r["ms"]["now"])[:3]
 
 
 def prefilter_path(fasta, golden):
@@ -829,22 +1154,6 @@ def prefilter_path(fasta, golden):
          f"filtered out on the card ({n_out / max(n_q, 1):.4f})")
     same_as_golden(out.getvalue(), golden, "port hybrid with the pre-filter")
     check(n_out > 0, "the pre-filter filtered no query")
-
-
-def elapsed_ms(fn, n):
-    """CUDA-event time of one call of fn, over n calls after a warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
 
 
 # bounds: an H100 SXM at its 700 W limit does 132 SMs x 64 int32 lanes x
@@ -934,10 +1243,10 @@ def time_kernel():
         torch.cuda.synchronize()
         check(torch.equal(got_new[:, :11], got_old[:, :11]),
               f"old and new counts kernels disagree at unit {ul}")
-        t_old = [elapsed_ms(lambda: old(*args, u_span), n)]
-        t_new = [elapsed_ms(lambda: wrap_dp_counts(*args, u_span), n)]
-        t_new.append(elapsed_ms(lambda: wrap_dp_counts(*args, u_span), n))
-        t_old.append(elapsed_ms(lambda: old(*args, u_span), n))
+        t_old = [event_ms(lambda: old(*args, u_span), n)]
+        t_new = [event_ms(lambda: wrap_dp_counts(*args, u_span), n)]
+        t_new.append(event_ms(lambda: wrap_dp_counts(*args, u_span), n))
+        t_old.append(event_ms(lambda: old(*args, u_span), n))
         ms, ms_old = min(t_new), min(t_old)
         bms, by, cells = counts_bound(batch[2])
         info(f"counts kernel, unit {ul} x rep_len {rl} x {b} jobs (C "
@@ -957,7 +1266,7 @@ def time_kernel():
                                        value=-2)
         return wrap_dp_counts_plain(scal, rep, unit)
 
-    plain_ms = elapsed_ms(plain, 1)
+    plain_ms = event_ms(plain, 1)
     info(f"plain version on the card, unit 100 x rep_len 4096 x 2048 jobs: "
          f"{plain_ms:.1f} ms/call, kernel {r['ms']:.3f} ms "
          f"({plain_ms / r['ms']:.0f}x)")
@@ -1017,57 +1326,16 @@ def hybrid_profile(fasta, golden):
     return out
 
 
-def time_consensus():
-    """CUDA-event times of the consensus kernels at unit 200 (the bench
-    set's polish units) and of one device-DI pass."""
+def time_di():
+    """One device-DI pass (Manhattan, 131,072 position bucket, k 5, w
+    640) against the native host sliding L1: equal, and both times."""
     import numpy as np
-    import torch
 
     from mtr_tpu_torch import native
-    from mtr_tpu_torch.ops import wrap_dp_consensus as cop
     from mtr_tpu_torch.ops.directional_index import make_di_compute
-    from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
-
-    rng = np.random.default_rng(931)
-
-    def inputs(b, rl):
-        unit = rng.integers(0, 4, 200).astype(np.int8)
-        rep = periodic_rep(rng, unit, rl + b)
-        flat = np.lib.stride_tricks.sliding_window_view(rep, rl)[:b]
-        jobs = [(flat[q], unit, (5, 1, 1)) for q in range(b)]
-        return [torch.from_numpy(a).cuda() for a in make_batch(jobs, 256)]
-
-    def full(args):
-        return lambda: cop.wrap_dp_consensus(*args, 256, 6)
-
-    b, rl = 512, 4096
-    args = inputs(b, rl)
-    ms = elapsed_ms(full(args), 3)
-    fill_ms = elapsed_ms(lambda: cop.fill(*args, 256), 3)
-    gcups = b * 200 * rl / (ms * 1e-3) / 1e9
-    info(f"consensus kernel, unit 200 x rep_len {rl} x {b} jobs (u_span "
-         f"256, scheme 5,1,1): {ms:.3f} ms/launch (fill {fill_ms:.3f} ms, "
-         f"traceback share {1 - fill_ms / ms:.3f}), {gcups:.2f} GCUPS")
-
-    rl = 1024
-    args = inputs(b, rl)
-    small_ms = elapsed_ms(full(args), 3)
-    # bound: the fill's recurrence and move code (~20 int32 operations a
-    # cell) and the traceback's walk (~10 a step, rep_len + unit_len steps
-    # a job); bytes: the rep codes read and the (B, 500, 9) blocks written
-    ops = b * (200 * rl * 20 + (rl + 200) * 10)
-    bms, by = bound_ms(ops, b * rl + b * 500 * 9 * 4)
-    info(f"consensus kernel, unit 200 x rep_len {rl} x {b} jobs: "
-         f"{small_ms:.3f} ms/launch, bound {bms:.3f} ms ({by}), share of "
-         f"bound {bms / small_ms:.3f}")
-    plain_ms = elapsed_ms(lambda: consensus_resident_plain(*args, 6), 1)
-    info(f"consensus plain version on the card, unit 200 x rep_len {rl} x "
-         f"{b} jobs: {plain_ms:.1f} ms/call, kernel {small_ms:.3f} ms "
-         f"({plain_ms / small_ms:.0f}x)")
-
-    # one Manhattan DI pass at the 131,072 position bucket, k = 5, w = 640
     from mtr_tpu_torch.utils.encoding import rolling_kmer_codes
 
+    rng = np.random.default_rng(931)
     L, rsl, w, k = 100000, 10000, 640, 5
     di_len = L + 2 * rsl
     buf = np.zeros(di_len + 16, np.int32)
@@ -1090,41 +1358,27 @@ def time_consensus():
     info(f"device DI pass (Manhattan, 131,072 bucket, k {k}, w {w}): "
          f"{di_ms:.3f} ms/call incl. copies (host clock); native host "
          f"sliding L1 {host_ms:.3f} ms")
-    return small_ms, plain_ms, bms, by
 
 
-def time_walk(bench):
-    """Phase 4c: CUDA-event times of the walk kernel on the speculative
-    jobs of the bench batch's chunk with the most jobs, and the kernel
-    against stage_b_plain on the card on the first 512 of them."""
-    import numpy as np
-
-    from mtr_tpu_torch.ops import dbg_device as dw
-
-    orgs, lens, (ridx, qs, qe, k) = bench
-    v_pad, (sv, adj), job = max(
-        walk_chunks(orgs, lens, np.stack([ridx, qs, qe, k], 1)),
-        key=lambda chunk: chunk[2][0].shape[0])
-    ms = elapsed_ms(lambda: dw.dbg_walk(sv, adj, *job), 3)
-    info(f"walk kernel, bench batch 1's largest job set (V bucket {v_pad}, "
-         f"{job[0].shape[0]} jobs): {ms:.3f} ms/launch")
-    sub = [a[:512] for a in job]
-    sub_ms = elapsed_ms(lambda: dw.dbg_walk(sv, adj, *sub), 3)
-    # bound by bytes only: the tables and job rows read once, the results
-    # written once (the operations of a walk depend on its path and are
-    # not counted, so this is a floor under the true bound)
-    outs = dw.dbg_walk(sv, adj, *sub)
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in (sv, adj, *sub, *outs))
-    bms, by = bound_ms(0, n_bytes)
-    info(f"walk kernel, first {sub[0].shape[0]} jobs: {sub_ms:.3f} ms, "
-         f"bound {bms:.4f} ms ({by}: {n_bytes} bytes), share of bound "
-         f"{bms / sub_ms:.4f}")
-    plain_ms = elapsed_ms(lambda: dw.stage_b_plain(sv, adj, *sub), 1)
-    info(f"walk plain version on the card, first {sub[0].shape[0]} of those "
-         f"jobs: {plain_ms:.1f} ms/call, kernel {sub_ms:.3f} ms "
-         f"({plain_ms / sub_ms:.0f}x)")
-    return sub_ms, plain_ms, bms, by
+def report_replay(name, rows, save):
+    """Print a replayed kernel's run sums and heaviest launches; write
+    every launch's row to build/chip_smoke/<save>."""
+    sums, heavy = run_summary(rows)
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, save), "w") as f:
+        json.dump(rows, f, indent=1)
+    info(f"{name}, the device-whole bench run's {len(rows)} launches "
+         f"replayed (first design / kernel, in turns; {card_line()}): run "
+         f"sum {sums['before']:.3f} / {sums['now']:.3f} ms "
+         f"({sums['before'] / sums['now']:.2f}x); rows in build/chip_smoke/"
+         f"{save}")
+    for r in heavy:
+        info(f"  heavy launch {r['launch']}: "
+             + ", ".join(f"{k} {v}" for k, v in r.items()
+                         if k not in ("launch", "ms"))
+             + f"; ms {r['ms']['before']:.3f} / {r['ms']['now']:.3f}")
+    return sums, heavy
 
 
 def main() -> int:
@@ -1146,20 +1400,44 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
             fasta, golden, hybrid_rate, host_rate, counts_launches = (
                 main_path(tmp))
-            walk_worst, walk_bad, bench = walk_vs_references(fasta)
+            walk_worst, walk_bad = walk_vs_references(fasta)
             device_path(fasta, golden, hybrid_rate, host_rate)
-            launches = device_walk_path(fasta, golden)
+            launches, spies = device_walk_path(fasta, golden)
             prefilter_path(fasta, golden)
             counts, plain_ms = time_kernel()
             profiled = hybrid_profile(fasta, golden)
-        cons_ms, cons_plain_ms, cons_bound, cons_by = time_consensus()
-        walk_ms, walk_plain_ms, walk_bound, walk_by = time_walk(bench)
+        cons_rows = replay_cons(spies.cons)
+        walk_rows = replay_walks(spies.walks, WALK_PLAIN_BUDGET_S)
+        del spies
+        cons_sums, (cons_heavy, *_) = report_replay(
+            "consensus kernel", cons_rows, "consensus_launches.json")
+        walk_sums, (walk_heavy, *_) = report_replay(
+            "walk kernel", walk_rows, "walk_launches.json")
+        check(cons_heavy["mismatches"] == 0, "consensus kernel disagrees "
+              "with the plain version on the heaviest launch")
+        counted = [r for r in walk_rows if "mismatches" in r]
+        check("mismatches" in walk_heavy and not any(
+            r["mismatches"] for r in counted), "walk kernel disagrees with "
+              "stage_b_plain on the run's launches")
+        walk_bound_run = sum(r["bound_ms"] for r in counted)
+        lookups = sum(r["lookups"] for r in counted)
+        steps = sum(r["plain_steps"] for r in counted)
+        info(f"walk kernel bound over the {len(counted)} of {len(walk_rows)} "
+             f"launches stage_b_plain counted ({lookups} lookups, {steps} "
+             f"steps, 0 mismatching): {walk_bound_run:.4f} ms; consensus "
+             f"bound over the run: "
+             f"{sum(r['bound_ms'] for r in cons_rows):.4f} ms")
+        time_di()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     info(f"chip_smoke: all phases passed in "
          f"{time.perf_counter() - t_all:.1f} s")
     c200 = counts[200]
+
+    def heaviest(r, keys):
+        return {k: r[k] for k in keys if k in r}
+
     # no single PyTorch call computes any of these functions: library_ms
     # is null
     print(json.dumps({"kernels": [{
@@ -1186,12 +1464,19 @@ def main() -> int:
         "source": "mtr_tpu_torch/csrc/wrap_dp_consensus.cu",
         "replaces": CONS_REPLACES,
         "launches": launches["consensus"],
-        "max_abs_err": cons_worst,
-        "ms": cons_ms,
-        "plain_ms": cons_plain_ms,
-        "bound_ms": cons_bound,
-        "bound_by": cons_by,
+        "max_abs_err": max(cons_worst, cons_heavy["max_abs_err"]),
+        "ms": cons_heavy["ms"]["now"],
+        "plain_ms": cons_heavy["plain_ms"],
+        "bound_ms": cons_heavy["bound_ms"],
+        "bound_by": cons_heavy["bound_by"],
         "library_ms": None,
+        "ms_before": cons_heavy["ms"]["before"],
+        "run_ms": cons_sums["now"],
+        "run_ms_before": cons_sums["before"],
+        "run_bound_ms": sum(r["bound_ms"] for r in cons_rows),
+        "heaviest_launch": heaviest(cons_heavy, (
+            "launch", "jobs", "u_span", "max_rep_len", "max_unit",
+            "cells")),
     }, {
         "name": "dbg_walk",
         "route": "cuda",
@@ -1199,12 +1484,20 @@ def main() -> int:
         "replaces": WALK_REPLACES,
         "launches": launches["dbg_walk"],
         "max_abs_err": walk_worst,
-        "mismatches": walk_bad,
-        "ms": walk_ms,
-        "plain_ms": walk_plain_ms,
-        "bound_ms": walk_bound,
-        "bound_by": walk_by,
+        "mismatches": walk_bad + sum(r["mismatches"] for r in counted),
+        "ms": walk_heavy["ms"]["now"],
+        "plain_ms": walk_heavy["plain_ms"],
+        "bound_ms": walk_heavy["bound_ms"],
+        "bound_by": walk_heavy["bound_by"],
         "library_ms": None,
+        "ms_before": walk_heavy["ms"]["before"],
+        "run_ms": walk_sums["now"],
+        "run_ms_before": walk_sums["before"],
+        "run_bound_ms": walk_bound_run,
+        "run_bound_launches": len(counted),
+        "heaviest_launch": heaviest(walk_heavy, (
+            "launch", "jobs", "v_pad", "rows", "max_steps", "steps",
+            "lookups")),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -26,12 +26,11 @@
 //     coalesced read, and __shfl_sync hands row r's code to all lanes;
 //   - diag: the lane's own registers, one __shfl_up_sync for its first
 //     column, and column U-1 (the wrap) kept from the previous row;
-//   - the deletion chain D[j] = max(m_j, D[j-1] - ip), reset at match
-//     cells and j == 0: a serial running max inside the lane (DPX
-//     __viaddmax_s32), one segmented max scan over the 32 lane tails
-//     (one shuffle a step: a lane takes its neighbour only while the
-//     neighbour lies in its own segment, found by ballot and __clz), then
-//     the lane's chain again from the carried value;
+//   - the candidates and the deletion chain D[j] = max(m_j, D[j-1] - ip),
+//     reset at match cells and j == 0: mtr_warp::row_values
+//     (wrap_dp_warp.cuh, shared with the consensus kernel), a serial
+//     running max inside the lane (DPX __viaddmax_s32) and one segmented
+//     max scan over the 32 lane tails;
 //   - one pass over the lane's columns: traceback precedence match >
 //     mismatch > deletion > insertion on final values, each cell's base
 //     of the aux payloads (m, ins, si), and the copy of that base from the
@@ -52,34 +51,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wrap_dp_warp.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using mtr_warp::bit;
+using mtr_warp::kFull;
+using mtr_warp::pick;
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
   if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
   return q;
 }
-
-// a[k] for a warp-uniform k (column U-1's slot in its lane): one switch,
-// not a select per column
-#define MTR_PICK_CASE(N)                 \
-  case N:                                \
-    if constexpr (N < C) v = a[N];       \
-    break;
-template <int C>
-__device__ __forceinline__ int pick(const int (&a)[C], int k) {
-  int v = 0;
-  switch (k) {
-    MTR_PICK_CASE(0) MTR_PICK_CASE(1) MTR_PICK_CASE(2) MTR_PICK_CASE(3)
-    MTR_PICK_CASE(4) MTR_PICK_CASE(5) MTR_PICK_CASE(6) MTR_PICK_CASE(7)
-    MTR_PICK_CASE(8) MTR_PICK_CASE(9) MTR_PICK_CASE(10) MTR_PICK_CASE(11)
-    MTR_PICK_CASE(12) MTR_PICK_CASE(13) MTR_PICK_CASE(14) MTR_PICK_CASE(15)
-  }
-  return v;
-}
-#undef MTR_PICK_CASE
 
 #define MTR_PICK3_CASE(N)                                 \
   case N:                                                 \
@@ -101,8 +85,6 @@ __device__ __forceinline__ void pick3(const int (&a)[C], const int (&b)[C],
   }
 }
 #undef MTR_PICK3_CASE
-
-__device__ __forceinline__ bool bit(unsigned m, int c) { return (m >> c) & 1u; }
 
 // One job on one warp, its unit's C columns a lane.
 template <int C>
@@ -156,37 +138,10 @@ __device__ __forceinline__ void counts_job(
       up_s = ws;
     }
 
-    // ---- candidates; the deletion chain inside the lane, no carry ----
+    // ---- the row's final values (wrap_dp_warp.cuh) ----
     int d[C];
-    unsigned seg = lane == 0 ? 1u : 0u;  // chain resets: matches and j == 0
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int diag = c ? prev[c - 1] : up_v;
-      const bool mi = u[c] == code;
-      seg |= (unsigned)mi << c;
-      d[c] = mi ? diag + mg : __vimax_s32_relu(diag - mp, prev[c] - ip);
-    }
-    int t = d[0];
-#pragma unroll
-    for (int c = 1; c < C; ++c)
-      t = bit(seg, c) ? d[c] : __viaddmax_s32(t, -ip, d[c]);
-
-    // ---- segmented max scan of the lane tails, in D[j] + ip*j ----
-    int tt = t + ip * (base_j + C - 1);
-    const unsigned sb = __ballot_sync(kFull, seg != 0u);
-    const int seg_lane = 31 - __clz(sb & ((2u << lane) - 1u));
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const int o = __shfl_up_sync(kFull, tt, s);
-      if (lane - s >= seg_lane) tt = max(tt, o);
-    }
-    // D at column base_j - 1 (lane 0 starts a segment: unused there)
-    int x = __shfl_up_sync(kFull, tt, 1) - ip * (base_j - 1);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      x = bit(seg, c) ? d[c] : __viaddmax_s32(x, -ip, d[c]);
-      d[c] = c < n_valid ? x : 0;  // the row's final values
-    }
+    mtr_warp::row_values<C>(u, code, prev, up_v, mg, mp, ip, lane, base_j,
+                            n_valid, d);
 
     // ---- one pass over the lane: traceback precedence match >
     //      mismatch > deletion > insertion on final values, each cell's

@@ -4,10 +4,12 @@ library, bound with ctypes).
 The library is built at first use from the sources under
 mtr_tpu_torch/csrc/ into build/mtr_tpu_torch/<hash>/ at the repository
 root, keyed by a hash of the sources, headers and flags, so an edited
-source never loads a stale binary.  The counts kernel's first design
-(csrc/wrap_dp_counts_block.cu) builds only on request, into a library of
-its own (baseline_library): chip_smoke.py times the kernel against it.  A failed build raises with nvcc's stderr: there is
-no fallback to the plain version.
+source never loads a stale binary.  The kernels' first designs
+(csrc/wrap_dp_counts_block.cu, csrc/wrap_dp_consensus_v1.cu,
+csrc/dbg_walk_v1.cu) build only on request, into a library of their own
+(baseline_library): chip_smoke.py times the kernels against them, and no
+path of the port launches them.  A failed build raises with nvcc's
+stderr: there is no fallback to the plain version.
 """
 
 from __future__ import annotations
@@ -24,14 +26,17 @@ _ROOT = os.path.dirname(_PKG)
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, name) for name in (
     "wrap_dp_counts.cu", "wrap_dp_consensus.cu", "dbg_walk.cu"))
-HEADERS = (os.path.join(_CSRC, "wrap_dp_rows.cuh"),)
-BASELINE = os.path.join(_CSRC, "wrap_dp_counts_block.cu")
+HEADERS = tuple(os.path.join(_CSRC, name) for name in (
+    "wrap_dp_rows.cuh", "wrap_dp_warp.cuh"))
+BASELINE = tuple(os.path.join(_CSRC, name) for name in (
+    "wrap_dp_counts_block.cu", "wrap_dp_consensus_v1.cu", "dbg_walk_v1.cu"))
 BUILD_DIR = os.path.join(_ROOT, "build", "mtr_tpu_torch")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
+_BASELINE_LIB = None
 
 
 def _nvcc() -> str:
@@ -50,7 +55,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES + HEADERS + (BASELINE,):
+    for src in SOURCES + HEADERS + BASELINE:
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -89,37 +94,45 @@ def _build(name: str, sources: tuple) -> str:
     return so
 
 
+def _bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    """Set each entry's argument types (c_void_p for pointers and the
+    stream, c_int for ints) and its int result (a cudaError_t)."""
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int if a == "i" else ctypes.c_void_p
+                       for a in args]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _LIB
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = ctypes.CDLL(_build("mtr_tpu_torch", SOURCES))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mtr_wrap_dp_counts.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, vp]
-        lib.mtr_wrap_dp_consensus_fill.argtypes = [
-            ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
-        lib.mtr_wrap_dp_consensus_traceback.argtypes = [
-            ci, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp]
-        lib.mtr_dbg_walk.argtypes = [
-            vp, vp, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp]
-        for fn in (lib.mtr_wrap_dp_counts, lib.mtr_wrap_dp_consensus_fill,
-                   lib.mtr_wrap_dp_consensus_traceback, lib.mtr_dbg_walk):
-            fn.restype = ci
-        _LIB = lib
-        return lib
+        if _LIB is None:
+            _LIB = _bind(ctypes.CDLL(_build("mtr_tpu_torch", SOURCES)), {
+                "mtr_wrap_dp_counts": "ippppppip",
+                "mtr_wrap_dp_consensus": "ipppppppipppip",
+                "mtr_dbg_walk": "ppipi" + "p" * 11,
+                "mtr_dbg_walk_jobs_per_block": "",
+            })
+        return _LIB
 
 
 def baseline_library() -> ctypes.CDLL:
-    """The first design of the counts kernel (csrc/wrap_dp_counts_block.cu,
-    entry mtr_wrap_dp_counts_block(u_span 128/256/512, ...)), in a library
-    of its own: a yardstick for timing, launched by no path of the
-    port."""
+    """The kernels' first designs in a library of their own, yardsticks
+    for timing launched by no path of the port:
+    mtr_wrap_dp_counts_block(u_span 128/256/512, ...) (the counts
+    kernel), mtr_wrap_dp_consensus_v1_fill / _traceback (u_span
+    128/256/512) and mtr_dbg_walk_v1."""
+    global _BASELINE_LIB
     with _LOCK:
-        lib = ctypes.CDLL(_build("mtr_counts_block", (BASELINE,)))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mtr_wrap_dp_counts_block.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci,
-                                             vp]
-    lib.mtr_wrap_dp_counts_block.restype = ci
-    return lib
+        if _BASELINE_LIB is None:
+            _BASELINE_LIB = _bind(
+                ctypes.CDLL(_build("mtr_baseline", BASELINE)), {
+                    "mtr_wrap_dp_counts_block": "ippppppip",
+                    "mtr_wrap_dp_consensus_v1_fill": "ippppppppip",
+                    "mtr_wrap_dp_consensus_v1_traceback": "ippppppippip",
+                    "mtr_dbg_walk_v1": "ppipppppipppppp",
+                })
+        return _BASELINE_LIB

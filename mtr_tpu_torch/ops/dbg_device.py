@@ -13,10 +13,12 @@ decremented counts in the live table (consensus.c:156-164, 199-222).
 Stage B (walks): one speculative job per (gated query, direction, start
 node); the reference walks the nodes in order and stops at the first loop
 (consensus.c:534-573), so walking all of them and taking the first found
-one is equivalent.  CUDA tensors launch csrc/dbg_walk.cu (one warp per
-job); CPU tensors run stage_b_plain, the vectorised port of JAX's two
-fori_loops.  A job reads its query's row of the chunk's tables through
-its row index; nothing is copied per job.
+one is equivalent.  CUDA tensors launch csrc/dbg_walk.cu (one block per
+table row and up to two of its jobs, a warp per job, the row's search
+level staged in shared memory; walk_blocks builds its launch table); CPU
+tensors run stage_b_plain, the vectorised port of JAX's two fori_loops.
+A job reads its query's row of the chunk's tables through its row index;
+nothing is copied per job.
 
 dbg_walk_device_batch drives both and returns native.dbg_walk_batch2's
 result dict.  The device keeps tie lists of T_DEV = 32 against the
@@ -55,6 +57,9 @@ JOBS_PER_LAUNCH = 1 << 16  # stage-B jobs per launch (units + scores: 256 MB)
 # path shows it ran here)
 STAGE_A_CALLS = 0
 LAUNCHES = 0
+# work of stage_b_plain's walks since the last reset: table lookups and
+# walk steps (the walk kernel's bound in chip_smoke.py counts them)
+PLAIN_WORK = {"lookups": 0, "steps": 0}
 
 _POW4 = [4**i for i in range(16)]
 
@@ -238,6 +243,7 @@ def _lookahead(tab, tq, node, fwd, k, max_la):
         tmp_f = (pm * (v_node % km))[:, None, None] + lsd
         tmp_b = msd * km[:, None, None] + (v_node // pm)[:, None, None]
         cand = torch.where(f3, lsd, msd).reshape(-1, 4 * T)
+        PLAIN_WORK["lookups"] += 4 * int(tcnt[live].sum())
         cnts = tab.lookup(tq[live],
                           torch.where(f3, tmp_f, tmp_b).reshape(-1, 4 * T))
         validc = (lane[None, :] < tcnt[live][:, None]).repeat_interleave(4, 1)
@@ -290,6 +296,9 @@ def stage_b_plain(sv, sc, tq, node0, is_fwd, k, lmax):
             break
         a_node, a_fwd, a_k, a_k1 = node[act], fwd[act], k[act], k1[act]
         a_tq = tq[act]
+        # a step looks up the recorded node's score besides its lookahead
+        PLAIN_WORK["steps"] += act.numel()
+        PLAIN_WORK["lookups"] += act.numel()
         max_la = torch.ones_like(a_k) if l < 10 else a_k
         md, m_out, a_ovf = _lookahead(tab, a_tq, a_node, a_fwd, a_k, max_la)
         ovf[act] |= a_ovf
@@ -314,17 +323,45 @@ def dbg_walk(sv, sc, tq, node0, is_fwd, k, lmax):
     """Stage B on one chunk's tables (shapes as stage_b_plain; every input
     int32).  CUDA tensors launch the kernel (csrc/dbg_walk.cu) or the call
     raises; CPU tensors run stage_b_plain."""
+    global LAUNCHES
     tensors = (sv, sc, tq, node0, is_fwd, k, lmax)
     if all(t.device.type == "cpu" for t in tensors):
         return stage_b_plain(*tensors)
     if not all(t.is_cuda and t.device == sv.device for t in tensors):
         raise ValueError("dbg_walk: tensors must all be on one CUDA device "
                          "or all on the CPU")
-    return _launch(*tensors)
+    launch, outs = prepare(*tensors)
+    if launch is not None:
+        launch()
+        LAUNCHES += 1
+    return outs
 
 
-def _launch(sv, sc, tq, node0, is_fwd, k, lmax):
-    global LAUNCHES
+def walk_blocks(tq: np.ndarray, per_block: int):
+    """The walk kernel's launch table for jobs reading table rows tq (J,):
+    perm (J,) int32, the job indices grouped by row (stable), and blocks
+    (n_blocks, 3) int32, per block its row, its first index into perm and
+    its job count (1 .. per_block, all of one row)."""
+    perm = np.argsort(tq, kind="stable")
+    st = tq[perm]
+    n = len(st)
+    run_start = np.flatnonzero(np.r_[True, st[1:] != st[:-1]]) if n else \
+        np.zeros(0, np.int64)
+    run_len = np.diff(np.r_[run_start, n])
+    nb = -(-run_len // per_block)
+    run = np.repeat(np.arange(len(run_start)), nb)
+    within = np.arange(int(nb.sum())) - np.repeat(np.cumsum(nb) - nb, nb)
+    first = run_start[run] + within * per_block
+    count = np.minimum(per_block, run_start[run] + run_len[run] - first)
+    blocks = np.stack([st[first], first, count], 1).astype(np.int32)
+    return perm.astype(np.int32), blocks.reshape(-1, 3)
+
+
+def prepare(sv, sc, tq, node0, is_fwd, k, lmax):
+    """Check a launch's inputs (CUDA tensors), allocate its outputs and
+    build its launch table -> (launch, outputs): launch() enqueues the
+    kernel on the current stream (None when there is no job).  dbg_walk
+    counts the launch; chip_smoke.py times launch() alone."""
     from mtr_tpu_torch.ops import _build
 
     q, v = sv.shape
@@ -338,34 +375,47 @@ def _launch(sv, sc, tq, node0, is_fwd, k, lmax):
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"dbg_walk: {name} must be contiguous")
+    if v not in V_BUCKETS:
+        raise ValueError(f"dbg_walk: table width {v} is not one of "
+                         f"{V_BUCKETS}")
+    if sv.data_ptr() % 16 or sc.data_ptr() % 16:
+        raise ValueError("dbg_walk: tables must be 16-byte aligned")
     dev = sv.device
     found = torch.empty(J, dtype=torch.bool, device=dev)
     ovf = torch.empty(J, dtype=torch.bool, device=dev)
     period = torch.empty(J, dtype=torch.int32, device=dev)
     units = torch.zeros((J, MAX_PERIOD), dtype=torch.int32, device=dev)
     scores = torch.zeros((J, MAX_PERIOD), dtype=torch.int32, device=dev)
+    outs = (found, period, units, scores, ovf)
     if J == 0:
-        return found, period, units, scores, ovf
+        return None, outs
     # the kernel reads row tq of the tables, codes below 4^k and up to
     # lmax entries of a job's units / scores
-    if not (0 <= int(tq.min()) and int(tq.max()) < q):
+    tq_h, k_h, lmax_h = torch.stack([tq, k, lmax]).cpu().numpy()
+    if not (0 <= tq_h.min() and tq_h.max() < q):
         raise ValueError("dbg_walk: tq outside the tables' rows")
-    if not (1 <= int(k.min()) and int(k.max()) <= KMAX):
+    if not (1 <= k_h.min() and k_h.max() <= KMAX):
         raise ValueError(f"dbg_walk: k outside 1..{KMAX}")
-    if int(lmax.max()) > MAX_PERIOD:
+    if lmax_h.max() > MAX_PERIOD:
         raise ValueError(f"dbg_walk: lmax above {MAX_PERIOD}")
     lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.mtr_dbg_walk(
-        sv.data_ptr(), sc.data_ptr(), v, tq.data_ptr(), node0.data_ptr(),
-        is_fwd.data_ptr(), k.data_ptr(), lmax.data_ptr(), J,
-        found.data_ptr(), period.data_ptr(), units.data_ptr(),
-        scores.data_ptr(), ovf.data_ptr(), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"dbg_walk kernel launch failed: CUDA error {err} "
-                           f"(V={v}, J={J})")
-    LAUNCHES += 1
-    return found, period, units, scores, ovf
+    perm, blocks = walk_blocks(tq_h, lib.mtr_dbg_walk_jobs_per_block())
+    perm, blocks = (torch.from_numpy(a).to(dev) for a in (perm, blocks))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    n_blocks = blocks.shape[0]
+
+    def launch():
+        err = lib.mtr_dbg_walk(
+            sv.data_ptr(), sc.data_ptr(), v, blocks.data_ptr(), n_blocks,
+            perm.data_ptr(), node0.data_ptr(), is_fwd.data_ptr(),
+            k.data_ptr(), lmax.data_ptr(), found.data_ptr(),
+            period.data_ptr(), units.data_ptr(), scores.data_ptr(),
+            ovf.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"dbg_walk kernel launch failed: CUDA error "
+                               f"{err} (V={v}, J={J})")
+
+    return launch, outs
 
 
 # ---------------------------------------------------------------------------

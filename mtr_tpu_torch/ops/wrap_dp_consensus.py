@@ -18,10 +18,13 @@ best_val, best_i, best_j, 0, 0, 0, 0].  `traceback_consensus_plain` ports
 
 `wrap_dp_consensus` is the resident form used by the device batcher (the
 counterpart of `get_wrap_dp_consensus_resident`, wrap_dp_resident.py:
-67-90): rep codes come from the batch's flat int8 reads at `starts`.
-CUDA tensors launch the hand-written kernels (csrc/wrap_dp_consensus.cu)
-or the call raises; CPU tensors run gather -> plain fill -> plain
-traceback.
+67-90): rep codes come from the batch's flat int8 reads at `starts`, unit
+rows are u_span codes wide (a multiple of 32, as for the counts op: the
+kernel gives each job C = ceil(unit_len / 32) columns a lane, so one
+launch takes every unit width).  CUDA tensors launch the hand-written
+kernel (csrc/wrap_dp_consensus.cu: fill and traceback in one launch, the
+moves packed 2 bits a cell as `pack_moves` states them) or the call
+raises; CPU tensors run gather -> plain fill -> plain traceback.
 """
 
 from __future__ import annotations
@@ -31,15 +34,12 @@ import ctypes
 import torch
 
 from mtr_tpu_torch.native import MAX_PERIOD
-from mtr_tpu_torch.ops.wrap_dp_counts import NEG
-
-# unit spans the kernels are instantiated for (one thread per unit column)
-U_SPANS = (128, 256, 512)
+from mtr_tpu_torch.ops.wrap_dp_counts import NEG, U_SPANS
 
 # move codes
 STOP, DIAG, DEL, INS = 0, 1, 2, 3
 
-# kernel launches (fill + traceback) since the last reset
+# kernel launches since the last reset
 LAUNCHES = 0
 
 
@@ -224,65 +224,91 @@ def _check_inputs(flat, starts, scal, unit, u_span, factor):
             raise ValueError(f"wrap_dp_consensus: {name} must be contiguous")
 
 
-def fill(flat, starts, scal, unit, u_span):
-    """Launch the fill kernel alone -> (moves, mv_off, best), the moves in
-    per-job slices of rep_len x u_span bytes at mv_off."""
+def move_row_bytes(unit_len):
+    """Bytes of one packed move row for units of unit_len (int, numpy or
+    torch): 32 lanes x WB, a lane's C = ceil(unit_len / 32) codes at 2 bits
+    each in a word of WB = 1, 2 or 4 bytes (C <= 4, 8, 16)."""
+    c = (unit_len + 31) // 32
+    return 32 * (1 + (c > 4) * 1 + (c > 8) * 2)
+
+
+def pack_moves(moves: torch.Tensor, scal: torch.Tensor):
+    """The kernel's move layout, stated in plain PyTorch: moves (r_pad, B,
+    u_pad) uint8 codes (as wrap_dp_fill_plain returns them) -> (packed
+    uint8 bytes, mv_off (B,) int64).  Job b's rows r < rep_len lie at
+    mv_off[b] + r * row_bytes; cell (r, j) is bits 2c..2c+1 of lane j // C's
+    little-endian word of WB bytes, c = j % C (move_row_bytes)."""
+    rep_len, unit_len = scal[:, 0].long(), scal[:, 1].long()
+    rb = move_row_bytes(unit_len)
+    sizes = rep_len * rb
+    mv_off = torch.cumsum(sizes, 0) - sizes
+    packed = torch.zeros(int(sizes.sum()), dtype=torch.uint8)
+    mv = moves.cpu().long()
+    for b in range(scal.shape[0]):
+        n_r, wb = int(rep_len[b]), int(rb[b]) // 32
+        c = max(1, -(-int(unit_len[b]) // 32))
+        if not n_r:
+            continue
+        cells = torch.zeros((n_r, 32 * c), dtype=torch.long)
+        w = min(32 * c, mv.shape[2])
+        cells[:, :w] = mv[:n_r, b, :w]
+        words = (cells.view(n_r, 32, c)
+                 << (2 * torch.arange(c))).sum(2)           # (n_r, 32)
+        byte = (words[:, :, None] >> (8 * torch.arange(wb))) & 255
+        o = int(mv_off[b])
+        packed[o : o + n_r * 32 * wb] = byte.reshape(-1).to(torch.uint8)
+    return packed, mv_off
+
+
+def prepare(flat, starts, scal, unit, u_span, factor):
+    """Check a launch's inputs (CUDA tensors) and allocate its outputs and
+    move scratch -> (launch, (fused, best, done, moves, mv_off)): launch()
+    enqueues the kernel on the current stream (None when there is no job).
+    _launch counts the launch; chip_smoke.py times launch() alone and
+    reads the packed moves."""
     from mtr_tpu_torch.ops import _build
 
+    _check_inputs(flat, starts, scal, unit, u_span, factor)
     b = scal.shape[0]
     dev = flat.device
-    sizes = scal[:, 0].long() * u_span
+    sizes = scal[:, 0].long() * move_row_bytes(scal[:, 1].long())
     mv_off = torch.cumsum(sizes, 0) - sizes
-    total = int(sizes.sum())
-    moves = torch.empty(max(total, 1), dtype=torch.uint8, device=dev)
+    moves = torch.empty(max(int(sizes.sum()) if b else 0, 1),
+                        dtype=torch.uint8, device=dev)
+    fused = torch.empty((b, MAX_PERIOD, 9), dtype=torch.int32, device=dev)
     best = torch.empty((b, 8), dtype=torch.int32, device=dev)
+    done = torch.empty(b, dtype=torch.int32, device=dev)
+    outs = (fused, best, done, moves, mv_off)
+    if b == 0:
+        return None, outs
     # the wrap column is the batch's final row, as in wrap_dp_counts
     max_rep = scal[:, 0].amax().reshape(1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.library().mtr_wrap_dp_consensus_fill(
-        u_span, flat.data_ptr(), starts.data_ptr(), scal.data_ptr(),
-        unit.data_ptr(), mv_off.data_ptr(), max_rep.data_ptr(),
-        moves.data_ptr(), best.data_ptr(), b, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"wrap_dp_consensus fill launch failed: CUDA "
-                           f"error {err} (u_span={u_span}, B={b})")
-    return moves, mv_off, best
+    lib = _build.library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
+    def launch():
+        err = lib.mtr_wrap_dp_consensus(
+            u_span, flat.data_ptr(), starts.data_ptr(), scal.data_ptr(),
+            unit.data_ptr(), mv_off.data_ptr(), max_rep.data_ptr(),
+            moves.data_ptr(), factor, best.data_ptr(), fused.data_ptr(),
+            done.data_ptr(), b, stream)
+        if err != 0:
+            raise RuntimeError(f"wrap_dp_consensus kernel launch failed: "
+                               f"CUDA error {err} (u_span={u_span}, B={b})")
 
-def traceback(flat, starts, scal, moves, mv_off, best, u_span, factor):
-    """Launch the traceback kernel alone -> (fused (B, 500, 9), done (B,))."""
-    from mtr_tpu_torch.ops import _build
-
-    b = scal.shape[0]
-    dev = flat.device
-    out = torch.zeros((b, MAX_PERIOD, 9), dtype=torch.int32, device=dev)
-    done = torch.empty(b, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.library().mtr_wrap_dp_consensus_traceback(
-        u_span, flat.data_ptr(), starts.data_ptr(), scal.data_ptr(),
-        mv_off.data_ptr(), moves.data_ptr(), best.data_ptr(), factor,
-        out.data_ptr(), done.data_ptr(), b, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"wrap_dp_consensus traceback launch failed: "
-                           f"CUDA error {err} (u_span={u_span}, B={b})")
-    return out, done
+    return launch, outs
 
 
 def _launch(flat, starts, scal, unit, u_span, factor):
     global LAUNCHES
-    _check_inputs(flat, starts, scal, unit, u_span, factor)
-    b = scal.shape[0]
-    if b == 0:
-        dev = flat.device
-        return (torch.zeros((0, MAX_PERIOD, 9), dtype=torch.int32,
-                            device=dev),
-                torch.zeros((0, 8), dtype=torch.int32, device=dev))
-    moves, mv_off, best = fill(flat, starts, scal, unit, u_span)
-    out, done = traceback(flat, starts, scal, moves, mv_off, best, u_span,
-                          factor)
+    launch, (fused, best, done, _, _) = prepare(flat, starts, scal, unit,
+                                                u_span, factor)
+    if launch is None:
+        return fused, best
+    launch()
     LAUNCHES += 1
     if not bool(done.all()):
         raise RuntimeError(
             "wrap_dp_consensus: a traceback walk reached its step bound "
             f"(rep_len * {factor} + {2 * MAX_PERIOD}) without stopping")
-    return out, best
+    return fused, best

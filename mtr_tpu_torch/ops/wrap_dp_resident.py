@@ -40,28 +40,34 @@ def _r_pad(scal: torch.Tensor) -> int:
     return max(1, int(scal[:, 0].max())) if scal.shape[0] else 1
 
 
+def _pow2_units(unit: torch.Tensor) -> torch.Tensor:
+    """Unit rows padded with -2 to the power of two the plain scans
+    need."""
+    u_pad = 1 << (unit.shape[1] - 1).bit_length()
+    if u_pad == unit.shape[1]:
+        return unit
+    return torch.nn.functional.pad(unit, (0, u_pad - unit.shape[1]),
+                                   value=-2)
+
+
 def counts_resident_plain(flat: torch.Tensor, starts: torch.Tensor,
                           scal: torch.Tensor,
                           unit: torch.Tensor) -> torch.Tensor:
-    """Plain counterpart of the resident counts kernel: gather, then fill
-    (the unit rows padded with -2 to the power of two the plain scan
-    needs)."""
-    u_pad = 1 << (unit.shape[1] - 1).bit_length()
-    if u_pad != unit.shape[1]:
-        unit = torch.nn.functional.pad(unit, (0, u_pad - unit.shape[1]),
-                                       value=-2)
+    """Plain counterpart of the resident counts kernel: gather, then
+    fill."""
     return wrap_dp_counts_plain(
-        scal, gather_segments(flat, starts, _r_pad(scal)), unit)
+        scal, gather_segments(flat, starts, _r_pad(scal)), _pow2_units(unit))
 
 
 def consensus_resident_plain(flat: torch.Tensor, starts: torch.Tensor,
                              scal: torch.Tensor, unit: torch.Tensor,
                              factor: int):
-    """Plain counterpart of the resident consensus kernels: gather, fill,
+    """Plain counterpart of the resident consensus kernel: gather, fill,
     then the bounded traceback -> ((B, 500, 9) int32, best (B, 8))."""
     r_pad = _r_pad(scal)
     rep = gather_segments(flat, starts, r_pad).to(torch.int32)
-    moves, best = wrap_dp_fill_plain(scal, rep, unit.to(torch.int32))
+    moves, best = wrap_dp_fill_plain(scal, rep, _pow2_units(unit).to(
+        torch.int32))
     fused = traceback_consensus_plain(moves, rep, scal[:, 1], best,
                                       consensus_steps(r_pad, factor))
     return fused, best

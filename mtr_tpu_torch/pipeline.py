@@ -30,8 +30,10 @@ from mtr_tpu_torch.io.fasta import Read, iter_fasta
 from mtr_tpu_torch.ops.dbg_device import dbg_walk_device_batch, native_walks
 from mtr_tpu_torch.ops.directional_index import make_di_compute
 from mtr_tpu_torch.ops.mf_filter import walked_mask
-from mtr_tpu_torch.ops.wrap_dp_consensus import U_SPANS as CONS_SPANS
-from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
+from mtr_tpu_torch.ops.wrap_dp_consensus import (
+    move_row_bytes,
+    wrap_dp_consensus,
+)
 from mtr_tpu_torch.ops.wrap_dp_counts import (
     R_MAX,
     VALUE_LIMIT,
@@ -505,16 +507,6 @@ def _process_wave(states, batcher, cfg, queries, range_result) -> None:
 MAX_WAVES = 6
 
 
-def _cons_span(unit_len: int) -> int:
-    """The consensus kernels' unit span for a job: the smallest of
-    128 / 256 / 512 (one thread per unit column)."""
-    for u in CONS_SPANS:
-        if unit_len <= u:
-            return u
-    raise ValueError(f"unit_len {unit_len} exceeds the largest span "
-                     f"{CONS_SPANS[-1]}")
-
-
 def _factor(schemes) -> int:
     """Traceback step factor of a consensus launch (mtr_tpu/pipeline.py:
     706-711): 1 + ceil(mg/ip) bounds a path's steps per rep row,
@@ -523,27 +515,28 @@ def _factor(schemes) -> int:
     return 2 if factor <= 2 else TB_FACTOR
 
 
-def _cap_parts(rep_lens: list[int], u_span: int) -> list[int]:
+def _cap_parts(move_bytes: list[int]) -> list[int]:
     """Cut a longest-first consensus group so that each launch's move
-    scratch (rep_len x u_span bytes per job) stays within
-    MOVES_BYTES_CAP; returns the cut points."""
+    scratch (each job's packed moves, rep_len x move_row_bytes) stays
+    within MOVES_BYTES_CAP; returns the cut points."""
     cuts, acc = [], 0
-    for q, rl in enumerate(rep_lens):
-        if acc and acc + rl * u_span > MOVES_BYTES_CAP:
+    for q, size in enumerate(move_bytes):
+        if acc and acc + size > MOVES_BYTES_CAP:
             cuts.append(q)
             acc = 0
-        acc += rl * u_span
-    return cuts + [len(rep_lens)]
+        acc += size
+    return cuts + [len(move_bytes)]
 
 
 class TorchDPBatcher:
     """DP jobs on one torch device (counterpart of
     mtr_tpu.pipeline.WrapDPBatcher).  The batch's reads are uploaded once
     (begin_batch); each run sorts its jobs longest first, launches the
-    counts kernel once for all counts jobs and the consensus kernels once
-    per unit span (cut to MOVES_BYTES_CAP of move scratch), and
-    copies each mode's results back to the host in one transfer.  On a CPU
-    device the ops run their plain versions (tests)."""
+    counts kernel once for all counts jobs and the consensus kernel once
+    for all consensus jobs (cut to MOVES_BYTES_CAP of move scratch), every
+    unit width in one launch, and copies each mode's results back to the
+    host in one transfer.  On a CPU device the ops run their plain
+    versions (tests)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -587,30 +580,29 @@ class TorchDPBatcher:
     def _run(self, jobs: list[DPJob]) -> None:
         if not jobs:
             return
-        # counts jobs: one launch for all of them (the kernel sizes each
-        # job's columns a lane itself); consensus jobs: one per span, cut
-        # to MOVES_BYTES_CAP of move scratch
-        groups: dict = {"counts": defaultdict(list),
-                        "consensus": defaultdict(list)}
+        # one launch a mode for every unit width (each kernel sizes a
+        # job's columns a lane itself); consensus launches cut to
+        # MOVES_BYTES_CAP of move scratch
+        groups: dict = {"counts": [], "consensus": []}
         for idx, job in enumerate(jobs):
-            key = 0 if job.mode == "counts" else _cons_span(len(job.unit))
-            groups[job.mode][key].append(idx)
+            groups[job.mode].append(idx)
         parts: dict = {"counts": [], "consensus": []}
         outs: dict = {"counts": [], "consensus": []}
-        for mode, by_span in groups.items():
-            for u_span, idxs in sorted(by_span.items()):
-                if mode == "counts":
-                    u_span = u_span_for(max(len(jobs[i].unit) for i in idxs))
-                # longest-first: the longest jobs start first
-                idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
-                cuts = ([len(idxs)] if mode == "counts" else _cap_parts(
-                    [jobs[i].qe - jobs[i].qs + 1 for i in idxs], u_span))
-                lo = 0
-                for hi in cuts:
-                    parts[mode].append(idxs[lo:hi])
-                    outs[mode].append(
-                        self._dispatch(jobs, idxs[lo:hi], u_span, mode))
-                    lo = hi
+        for mode, idxs in groups.items():
+            if not idxs:
+                continue
+            u_span = u_span_for(max(len(jobs[i].unit) for i in idxs))
+            # longest-first: the longest jobs start first
+            idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
+            cuts = ([len(idxs)] if mode == "counts" else _cap_parts(
+                [(jobs[i].qe - jobs[i].qs + 1) * move_row_bytes(
+                    len(jobs[i].unit)) for i in idxs]))
+            lo = 0
+            for hi in cuts:
+                parts[mode].append(idxs[lo:hi])
+                outs[mode].append(
+                    self._dispatch(jobs, idxs[lo:hi], u_span, mode))
+                lo = hi
         with TIMERS.section("dp_wait"):
             # one device->host copy per mode
             res = {mode: torch.cat(o).cpu().numpy()
@@ -645,7 +637,7 @@ class TorchDPBatcher:
             unit = jobs[part[rows[0]]].unit
             units[np.asarray(rows), : len(unit)] = unit
             scal[rows, 1] = len(unit)
-        self._check_bounds(scal, starts, u_span, mode)
+        self._check_bounds(scal, starts, u_span)
         with TIMERS.section("dp_dispatch"):
             dev = self.device
             args = (
@@ -669,10 +661,11 @@ class TorchDPBatcher:
             self.cons_cells += cells
         return out
 
-    def _check_bounds(self, scal, starts, u_span, mode="counts") -> None:
-        """The kernels' own bounds (unpacked int32).  The value bound is
-        per job: the counts kernel carries D[j] + ip*j over 32*C columns,
-        C = ceil(unit_len / 32); the consensus kernels over u_span."""
+    def _check_bounds(self, scal, starts, u_span) -> None:
+        """The kernels' own bounds (unpacked int32), the same for both:
+        rep_len <= R_MAX (2^20: the consensus kernel's traceback log keeps
+        a 20-bit row), unit_len <= u_span <= 512, and per job the scan value
+        D[j] + ip*j carried over 32*C columns, C = ceil(unit_len / 32)."""
         rep_len = scal[:, 0].astype(np.int64)
         mg, ip = scal[:, 2].astype(np.int64), scal[:, 4].astype(np.int64)
         if (rep_len > R_MAX).any():
@@ -681,8 +674,7 @@ class TorchDPBatcher:
             raise ValueError(f"unit_len above the span {u_span}")
         if (ip < 1).any():
             raise ValueError("indel penalty must be >= 1")
-        span = (32 * np.maximum(1, -(-scal[:, 1].astype(np.int64) // 32))
-                if mode == "counts" else u_span)
+        span = 32 * np.maximum(1, -(-scal[:, 1].astype(np.int64) // 32))
         if (rep_len * mg + ip * span >= VALUE_LIMIT).any():
             raise ValueError("rep_len*mg + ip*span overflows int32")
         if (starts < 0).any() or (starts + rep_len > len(self._flat)).any():

@@ -376,3 +376,92 @@ def test_native_walks_from_many_threads():
     for i, (_, _, a) in enumerate(sets):
         assert_same(got[i], want[i], len(a[0]))
         assert (want[i]["fwd_row"] >= 0).any()
+
+
+# ------------------------------------------ the walk kernel's launch table
+
+
+@pytest.mark.parametrize("per_block", [1, 2, 3])
+def test_walk_blocks_group_jobs_by_row(per_block):
+    """walk_blocks' table for the kernel's blocks (one table row and up
+    to per_block of its jobs a block): every job in exactly one block, a
+    block's jobs all of its row, row order stable; and the walks in the
+    table's job order, put back in place, are JAX's _stage_b results, for
+    jobs handed over in a shuffled order."""
+    orgs, lens, queries = _walk_set(13)
+    ridx, qs, qe, k = as_arrays(queries)
+    sv, adj, maxfreq, nodes, n_nodes = _port_stage_a(orgs, lens, queries, 1024)
+    _, _, tq, node0, is_fwd, _ = td.chunk_jobs(maxfreq, n_nodes, nodes)
+    lmax = np.minimum(td.MAX_PERIOD, (qe - qs) // td.MIN_NUM_FREQ_UNIT)
+    jobs = np.stack([tq, node0, is_fwd, k[tq], lmax[tq]], 1).astype(np.int32)
+    jobs = jobs[np.random.default_rng(per_block).permutation(len(jobs))]
+    perm, blocks = td.walk_blocks(jobs[:, 0], per_block)
+
+    assert perm.dtype == blocks.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(perm), np.arange(len(jobs)))
+    assert ((blocks[:, 2] >= 1) & (blocks[:, 2] <= per_block)).all()
+    spans = [np.arange(f, f + n) for _, f, n in blocks]
+    np.testing.assert_array_equal(np.concatenate(spans), np.arange(len(jobs)))
+    for (row, f, n), span in zip(blocks, spans):
+        assert (jobs[perm[span], 0] == row).all()
+    for row in np.unique(jobs[:, 0]):  # stable inside a row
+        mine = perm[jobs[perm, 0] == row]
+        assert (np.diff(mine) > 0).all()
+
+    got = td.stage_b_plain(sv, adj, *map(torch.from_numpy,
+                                         jobs[perm].T.copy()))
+    want = jd._stage_b(jnp.take(jnp.asarray(sv.numpy()), jobs[:, 0], axis=0),
+                       jnp.take(jnp.asarray(adj.numpy()), jobs[:, 0], axis=0),
+                       *map(jnp.asarray, jobs[:, 1:].T))
+    inv = np.argsort(perm)
+    for name, g, w in zip(("found", "period", "units", "scores", "ovf"),
+                          got, want):
+        np.testing.assert_array_equal(g.numpy()[inv], np.asarray(w),
+                                      err_msg=name)
+
+
+def kernel_lookup(sv, sc, tq, keys, stride):
+    """The walk kernel's lookup restated in plain numpy: a row's search
+    level holds the last value of every stride-element segment (the row
+    itself at stride 1); its lower bound names the segment that holds the
+    key's first position, and the segment's first match gives the live
+    count, 0 without one."""
+    out = np.zeros(keys.shape, np.int64)
+    for q, (row, ks) in enumerate(zip(tq, keys)):
+        level = sv[row, stride - 1 :: stride]
+        for n, key in enumerate(ks):
+            c = int(np.searchsorted(level, key, side="left"))
+            if c == len(level):
+                continue
+            seg = sv[row, c * stride : (c + 1) * stride]
+            hit = np.nonzero(seg == key)[0]
+            if len(hit):
+                out[q, n] = sc[row, c * stride + hit[0]]
+    return out
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+def test_sampled_search_level_is_searchsorted(stride):
+    """The kernel stages every stride-th value of a row (stride 2 and 4
+    for the 32,768 and 65,536 buckets) and reads one segment: on stage-A
+    tables that gives JAX's lookup (searchsorted left, clipped to the row,
+    the count where the value is the key), for keys present (including
+    first and last of a run and of a row), absent, and past every value."""
+    orgs, lens, queries = _walk_set(14)
+    sv, adj, *_ = _port_stage_a(orgs, lens, queries, 256)
+    sv_n, adj_n = sv.numpy(), adj.numpy()
+    rng = np.random.default_rng(stride)
+    n_q = sv_n.shape[0]
+    tq = rng.integers(0, n_q, 64)
+    present = sv_n[tq[:, None], rng.integers(0, 256, (64, 6))]
+    present = np.where(present == td.INT_MAX, 5, present)
+    edges = np.stack([sv_n[tq, 0], np.where(sv_n[tq, -1] == td.INT_MAX,
+                                            sv_n[tq, 0], sv_n[tq, -1])], 1)
+    keys = np.concatenate([present, edges, present + 1,
+                           rng.integers(0, 4**15, (64, 4)),
+                           np.full((64, 1), 4**15 - 1)], 1).astype(np.int32)
+    got = kernel_lookup(sv_n, adj_n, tq, keys, stride)
+    tab = td._Tables(sv, adj)
+    want = tab.lookup(torch.from_numpy(tq)[:, None], torch.from_numpy(keys))
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (got > 0).any() and (got == 0).any()

@@ -195,3 +195,121 @@ def test_op_refuses_mixed_devices():
         wrap_dp_consensus(meta, torch.zeros(1, dtype=torch.int32),
                           torch.zeros((1, 8), dtype=torch.int32),
                           torch.zeros((1, 128), dtype=torch.int8), 128, 2)
+
+
+# ------------------------------------- the kernel's packed move layout
+
+
+def unpack_moves(packed: torch.Tensor, mv_off: torch.Tensor,
+                 scal: torch.Tensor, r_pad: int, u_pad: int) -> torch.Tensor:
+    """pack_moves' inverse: -> (r_pad, B, u_pad) uint8, zero outside each
+    job's rows and unit columns."""
+    b_n = scal.shape[0]
+    out = torch.zeros((r_pad, b_n, u_pad), dtype=torch.uint8)
+    for b in range(b_n):
+        n_r, ul = int(scal[b, 0]), int(scal[b, 1])
+        if not n_r:
+            continue
+        wb = int(op.move_row_bytes(ul)) // 32
+        c = max(1, -(-ul // 32))
+        o = int(mv_off[b])
+        byte = packed[o : o + n_r * 32 * wb].long().view(n_r, 32, wb)
+        words = (byte << (8 * torch.arange(wb))).sum(2)      # (n_r, 32)
+        cells = (words[:, :, None] >> (2 * torch.arange(c))) & 3
+        cols = min(ul, u_pad)
+        out[:n_r, b, :cols] = cells.reshape(n_r, 32 * c)[:, :cols].to(
+            torch.uint8)
+    return out
+
+
+def test_move_row_bytes():
+    """A packed move row is 32 lanes x WB bytes, WB = 1, 2, 4 for C =
+    ceil(unit_len / 32) <= 4, 8, 16."""
+    units = [1, 32, 128, 129, 256, 257, 500, 512]
+    want = [32, 32, 32, 64, 64, 128, 128, 128]
+    assert [op.move_row_bytes(u) for u in units] == want
+    assert op.move_row_bytes(torch.tensor(units)).tolist() == want
+    assert op.move_row_bytes(np.array(units)).tolist() == want
+
+
+@pytest.mark.parametrize("u_pad", [128, 512])
+def test_packed_moves_round_trip_and_walk(u_pad):
+    """pack_moves states the kernel's move scratch: the Pallas fill's
+    moves (valid cells) packed 2 bits a cell at the kernel's offsets and
+    unpacked again are the same tensor, and the plain traceback over the
+    unpacked moves equals traceback_consensus_batch_n over the Pallas
+    ones."""
+    scheme, r_pad = (1, 1, 3), 256
+    scal, reps, units = _batch(scheme, u_pad, r_pad, seed=900 + u_pad)
+    moves, best = make_wrap_dp_pallas(8, u_pad, r_pad,
+                                      interpret=True)(scal, reps, units)
+    valid = ((np.arange(r_pad)[:, None, None] < scal[None, :, 0:1])
+             & (np.arange(u_pad)[None, None, :] < scal[None, :, 1:2]))
+    mv = np.where(valid, np.asarray(moves), 0).astype(np.uint8)
+    packed, mv_off = op.pack_moves(_t(mv), _t(scal))
+    sizes = scal[:, 0].astype(np.int64) * op.move_row_bytes(scal[:, 1])
+    np.testing.assert_array_equal(mv_off.numpy(), np.cumsum(sizes) - sizes)
+    assert packed.numel() == sizes.sum()
+    back = unpack_moves(packed, mv_off, _t(scal), r_pad, u_pad)
+    np.testing.assert_array_equal(back.numpy(), mv)
+    steps = consensus_steps(r_pad, _factor(scheme))
+    want = np.asarray(traceback_consensus_batch_n(
+        steps, u_pad, moves, reps, scal[:, 1].copy(), best))
+    got = traceback_consensus_plain(back, _t(reps), _t(scal[:, 1]),
+                                    _t(np.asarray(best)), steps).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _mixed_consensus_jobs(dpjob):
+    """Consensus jobs of units 4 to 480 (C 1 to 15) over two reads."""
+    rng = np.random.default_rng(17)
+    orgs = [rng.integers(0, 4, 1400).astype(np.int32) for _ in range(2)]
+    jobs = []
+    for org in orgs:
+        for ul, scheme in ((4, (5, 1, 1)), (60, (1, 1, 3)), (140, (5, 1, 1)),
+                           (300, (1, 3, 1)), (480, (1, 1, 3))):
+            qs = int(rng.integers(0, 300))
+            unit = org[qs + 1 : qs + 1 + ul]
+            qe = qs + int(rng.integers(ul, ul + 500))
+            jobs.append(dpjob(org, qs, qe, unit, scheme, "consensus"))
+    return orgs, jobs
+
+
+@pytest.mark.parametrize("cap", [1 << 30, 60000])
+def test_batcher_one_consensus_launch_for_every_width(monkeypatch, cap):
+    """TorchDPBatcher hands all of a run's consensus jobs, whatever their
+    unit, to one op call with rows 32 * ceil(max unit / 32) wide, longest
+    first; with MOVES_BYTES_CAP lowered, to consecutive calls whose packed
+    moves each fit the cap.  The (500, 9) blocks equal mtr_tpu's host
+    engine either way."""
+    from mtr_tpu_torch import pipeline as tp
+
+    orgs, jobs = _mixed_consensus_jobs(tp.DPJob)
+    calls = []
+    real = tp.wrap_dp_consensus
+
+    def spy(flat, starts, scal, unit, u_span, factor):
+        rows = scal[:, 0].long()
+        calls.append((u_span, rows.tolist(), int((
+            rows * op.move_row_bytes(scal[:, 1].long())).sum())))
+        return real(flat, starts, scal, unit, u_span, factor)
+
+    monkeypatch.setattr(tp, "wrap_dp_consensus", spy)
+    monkeypatch.setattr(tp, "MOVES_BYTES_CAP", cap)
+    dev = tp.TorchDPBatcher(torch.device("cpu"))
+    dev.begin_batch(orgs)
+    dev.run(jobs, deduped=True)
+
+    ref_orgs, ref = _mixed_consensus_jobs(DPJob)
+    HostDPBatcher().run(ref, deduped=True)
+    for job, want in zip(jobs, ref):
+        np.testing.assert_array_equal(job.result[0], want.result[0])
+        np.testing.assert_array_equal(job.result[1], want.result[1])
+    assert all(u_span == 480 for u_span, _, _ in calls)
+    lens = [rl for _, rls, _ in calls for rl in rls]
+    assert lens == sorted(lens, reverse=True) and len(lens) == len(jobs)
+    if cap == 1 << 30:
+        assert len(calls) == 1
+    else:
+        assert len(calls) > 1
+        assert all(size <= cap or len(rls) == 1 for _, rls, size in calls)
