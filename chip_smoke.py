@@ -6,7 +6,9 @@
 Phases, in order; any failure exits non-zero before the result line:
   1. preflight: a CUDA card, the port's native host engine (built for
      this machine's CPU at first use), the card's name and power limit,
-     the kernels' build;
+     the kernels' build, and one wrap_dp_counts launch held to the plain
+     version (the compiler and the card are alive before anything is
+     timed);
   2. the counts kernel against its plain PyTorch version on the card
      (rep_len <= 2048; units at 32C and 32C + 1 for every C = 1..16 and
      at the old span edges; degenerate jobs; one launch per C, then all
@@ -62,7 +64,27 @@ Phases, in order; any failure exits non-zero before the result line:
      and longest walk a launch; then, heaviest first within
      WALK_PLAIN_BUDGET_S, the kernel against stage_b_plain on the launch
      (zero tolerance) and the lookups and steps stage_b_plain counts
-     there, for the bound; one device-DI pass.
+     there, for the bound; one device-DI pass;
+  5a. the CLI's other modes, each `python -m mtr_tpu_torch.cli` in a new
+     process against a golden that mtr_tpu's host backend wrote
+     (scripts/write_port_goldens.py): -p under --backend hybrid and under
+     --backend device (the -c summary must count Pearson DI passes on the
+     card), -a under device, --cluster under hybrid (the near matrix on
+     the card), --checkpoint resumed at 10 of 20 reads, and --no-strict
+     with a fresh checkpoint on the clean set (the file must end at 20);
+  5b. the hybrid on the equality sets: the structured-error set, the
+     100-read 100x10 set and one read of 800 kbp;
+  5c. the mesh on two slots that are both this one card (it shows that the
+     split is exact, not that it scales): entry()'s step,
+     sharded_wrap_dp_step against one launch, the bench set under backend
+     device with host walks and ShardedTorchDPBatcher (the counts and
+     consensus launches of the one-device path doubled, the Manhattan DI
+     cut by position), make_mesh refusing one card more than there are;
+  5d. two processes on the one card: two run_file_sharded workers (gloo,
+     hybrid), merged output and gathered record columns against the
+     one-process run, both walls printed;
+  5e. accuracy: the pinned exact-match and ratio counts of
+     tests/test_accuracy.py through the hybrid.
 
 The replayed launches' rows are written to build/chip_smoke/*_launches.json.
 Each path of phase 3 sets the kernels' launch counts to 0 before it runs
@@ -104,12 +126,18 @@ CONS_REPLACES = ("mtr_tpu/ops/wrap_dp_pallas.py:52 (with "
 POLISH_SIZES = ((203, 4167), (100, 10000), (480, 10000))
 BENCH_READS = 20  # the bench set's reads (bench.py:87-91)
 BENCH_ARGS = (200, 200, 9.7, 2.9, 7.5, 40000, 40000, BENCH_READS)
+# the mesh phases' slots: both are the one card
+MESH_SLOTS = ("cuda:0", "cuda:0")
+# tests/test_accuracy.py:32-40: unit 100 x 10 copies, 50 reads, seed 777 ->
+# exact matches, ratios >= 0.99, ratios >= 0.98
+ACCURACY_PINS = (35, 48, 49)
 WALK_REPLACES = "mtr_tpu/ops/dbg_device.py:132 (_stage_b)"
 WALK_UNITS = (2, 3, 7, 15, 33, 60, 95, 120)
 # seconds of stage_b_plain on the replayed walk launches (heaviest first)
 # for the bound's lookups and steps and the check against the kernel; the
-# bench run's 60 launches took ~200 s in all on an H100
-WALK_PLAIN_BUDGET_S = 240.0
+# bench run's 60 launches took ~200 s in all on an H100, so this budget
+# checks the heaviest of them
+WALK_PLAIN_BUDGET_S = 60.0
 WHALE_WIDTHS = (2048, 5000, 12000, 38371)
 
 
@@ -221,6 +249,26 @@ def preflight():
     _build.library()
     info(f"kernel build (nvcc, fresh checkout) and load: "
          f"{time.perf_counter() - t0:.2f} s")
+    # one launch against the plain version: the liveness probe
+    from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
+    from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
+
+    before = counts_op.LAUNCHES
+
+    rng = np.random.default_rng(229)
+    unit = rng.integers(0, 4, 100).astype(np.int8)
+    jobs = [(periodic_rep(rng, unit, rl), unit, (1, 1, 3))
+            for rl in (512, 300, 64)]
+    batch = make_batch(jobs, 128)
+    got = run_kernel(batch, 128)
+    flat, starts, scal, units = (torch.from_numpy(a).cuda() for a in batch)
+    want = counts_op.wrap_dp_counts_plain(
+        scal, gather_segments(flat, starts, 512), units).cpu().numpy()
+    check(counts_op.LAUNCHES == before + 1, "preflight launched no kernel")
+    check(np.array_equal(got[:, :11], want[:, :11]),
+          "preflight: the counts kernel disagrees with the plain version")
+    info(f"preflight launch: wrap_dp_counts on {len(jobs)} jobs (unit 100, "
+         f"rep_len <= 512) equals the plain version")
 
 
 def kernel_vs_references():
@@ -652,11 +700,6 @@ def same_as_golden(got: str, golden: str, what: str) -> None:
         raise SmokeFailure(f"{what} differs from the golden ({diff})")
 
 
-def read_golden(name):
-    with open(os.path.join(HERE, "tests", "golden", name)) as f:
-        return f.read()
-
-
 def main_path(tmp):
     """Phase 3: the port's hybrid on the bench set and the 100x10 set, and
     the port's host backend on the bench set, each against its golden
@@ -665,6 +708,7 @@ def main_path(tmp):
 
     from mtr_tpu_torch.config import MTRConfig
     from mtr_tpu_torch.pipeline import make_batcher, run_file
+    from mtr_tpu_torch.testutil.golden_sets import read_golden
     from mtr_tpu_torch.testutil.rand_seq import write_fasta
 
     fasta = os.path.join(tmp, "bench_200x200.fasta")
@@ -673,7 +717,7 @@ def main_path(tmp):
     write_fasta(fasta, fasta[:-6] + ".units", *BENCH_ARGS, seed=20200)
     info(f"bench set: {n_reads} reads, {os.path.getsize(fasta)} bytes, "
          f"generated in {time.perf_counter() - t0:.1f} s")
-    golden = read_golden("bench_200x200.out")
+    golden = read_golden("bench_200x200")
 
     cfg = MTRConfig(backend="hybrid")
     batcher = make_batcher(cfg)
@@ -686,7 +730,9 @@ def main_path(tmp):
 
     t0 = time.perf_counter()
     host_out = io.StringIO()
-    run_file(fasta, MTRConfig(backend="host"), host_out)
+    records, per_read = [], {}  # the one-process run, for phase 5d
+    run_file(fasta, MTRConfig(backend="host"), host_out,
+             record_sink=records.append, read_meta=per_read.__setitem__)
     dt_host = time.perf_counter() - t0
 
     dev, host = batcher.device.cells, batcher.host_cells
@@ -711,14 +757,16 @@ def main_path(tmp):
     out = io.StringIO()
     run_file(golden_100 + ".fasta", cfg, out, batcher=batcher)
     dt = time.perf_counter() - t0
-    same_as_golden(out.getvalue(), read_golden("multi20_100x10.out"),
+    same_as_golden(out.getvalue(), read_golden("multi20_100x10"),
                    "port hybrid, 100x10 set")
     with open(golden_100 + ".fasta") as f:
         n_golden = sum(line.startswith(">") for line in f)
     info(f"100x10 golden, port hybrid: identical, {dt:.3f} s, "
          f"{n_golden / dt:.1f} reads/s ({n_golden} reads), device cells "
          f"{batcher.device.cells}")
-    return fasta, golden, n_reads / dt_port, n_reads / dt_host, launches
+    single = {"records": records, "per_read": per_read,
+              "hybrid_s": dt_port}
+    return fasta, golden, n_reads / dt_port, n_reads / dt_host, launches, single
 
 
 def device_path(fasta, golden, hybrid_rate, host_rate):
@@ -756,6 +804,7 @@ def device_path(fasta, golden, hybrid_rate, host_rate):
         check(launches[name] > 0, f"the device path ran no {name} launch")
     check(launches["dbg_walk"] == 0, "use_device_walks=False walked on the "
           "device")
+    return launches, dt
 
 
 def reset_counts():
@@ -765,7 +814,7 @@ def reset_counts():
     from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
 
     counts_op.LAUNCHES = cons_op.LAUNCHES = dw.LAUNCHES = 0
-    dw.STAGE_A_CALLS = di.CALLS = 0
+    dw.STAGE_A_CALLS = di.CALLS = di.SHARDED_CALLS = 0
 
 
 def read_counts():
@@ -776,7 +825,7 @@ def read_counts():
 
     return {"counts": counts_op.LAUNCHES, "consensus": cons_op.LAUNCHES,
             "dbg_walk": dw.LAUNCHES, "stage_a": dw.STAGE_A_CALLS,
-            "di": di.CALLS}
+            "di": di.CALLS, "di_sharded": di.SHARDED_CALLS}
 
 
 def device_walk_path(fasta, golden):
@@ -789,6 +838,7 @@ def device_walk_path(fasta, golden):
     from mtr_tpu_torch.config import MTRConfig
     from mtr_tpu_torch.utils.timers import TIMERS
     from mtr_tpu_torch.pipeline import make_batcher, run_file
+    from mtr_tpu_torch.testutil.golden_sets import read_golden
 
     cfg = MTRConfig(backend="device")
     batcher = make_batcher(cfg)
@@ -827,7 +877,7 @@ def device_walk_path(fasta, golden):
     out = io.StringIO()
     run_file(golden_100 + ".fasta", cfg, out, batcher=make_batcher(cfg))
     dt = time.perf_counter() - t0
-    same_as_golden(out.getvalue(), read_golden("multi20_100x10.out"),
+    same_as_golden(out.getvalue(), read_golden("multi20_100x10"),
                    "port device (device walks), 100x10 set")
     info(f"100x10 golden, port device with device walks: identical, "
          f"{dt:.3f} s")
@@ -842,6 +892,269 @@ def device_walk_path(fasta, golden):
     check(r.returncode == 0, f"the CLI failed: {r.stderr[-2000:]}")
     same_as_golden(r.stdout, golden, "CLI --backend device")
     return launches, spies
+
+
+# ------------------------------------------- phases 5a-5e: the other paths
+
+
+def run_cli(flags, fasta, what, want=None):
+    """`python -m mtr_tpu_torch.cli <flags> <fasta>` in a new process ->
+    (stdout, stderr, wall seconds); exit 0 or the phase fails.  With
+    `want`, the stdout must equal it."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "mtr_tpu_torch.cli", *flags, fasta], cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(r.returncode == 0,
+          f"CLI {' '.join(flags)} failed ({what}): {r.stderr[-2000:]}")
+    if want is not None:
+        same_as_golden(r.stdout, want, f"CLI {' '.join(flags)} ({what})")
+        info(f"CLI {' '.join(flags)} on {what}: identical to its golden, "
+             f"{r.stdout.count(chr(10))} lines, {dt:.3f} s in a new process "
+             f"({card_line()})")
+    return r.stdout, r.stderr, dt
+
+
+def summary_count(stderr: str, name: str) -> int:
+    """A counter of the CLI's -c summary (a line of tab, count, tab,
+    name)."""
+    for line in stderr.splitlines():
+        parts = line.split("\t")
+        if len(parts) == 3 and parts[2] == name:
+            return int(parts[1])
+    return 0
+
+
+def cli_modes(fasta, tmp, hybrid="hybrid", device="device"):
+    """Phase 5a: the CLI's -p, -a, --cluster, --checkpoint and --no-strict
+    on the card, each against a golden written by mtr_tpu's host backend."""
+    from mtr_tpu_torch.testutil.golden_sets import MULTI20, read_golden
+
+    pcc = read_golden("bench_200x200_pcc")
+    run_cli(["--backend", hybrid, "-p"], fasta, "the bench set", pcc)
+    _, err, _ = run_cli(["--backend", device, "-p", "-c"], fasta,
+                        "the bench set", pcc)
+    n_pearson = summary_count(err, "di_pearson_passes")
+    info(f"CLI --backend {device} -p: {n_pearson} Pearson DI passes on the "
+         f"card, {summary_count(err, 'di_manhattan_passes')} Manhattan")
+    check(n_pearson > 0 or device != "device",
+          "-p under --backend device ran no Pearson DI pass on the card")
+    run_cli(["--backend", device, "-a"], MULTI20, "the 100x10 set",
+            read_golden("multi20_100x10_alignment"))
+    run_cli(["--backend", hybrid, "--cluster"], fasta, "the bench set",
+            read_golden("bench_200x200_cluster"))
+
+    golden = read_golden("bench_200x200")
+    ckpt = os.path.join(tmp, "resume.ckpt")
+    with open(ckpt, "w") as f:
+        f.write("10")
+    # read ids of the set are 0..19: reads 11-20 are ids 10-19
+    want = "".join(ln for ln in golden.splitlines(True)
+                   if int(ln.split("\t")[0]) >= 10)
+    check(0 < want.count("\n") < golden.count("\n"), "empty resume golden")
+    run_cli(["--backend", hybrid, "--checkpoint", ckpt], fasta,
+            "the bench set resumed at read 11 of 20", want)
+    with open(ckpt) as f:
+        check(f.read() == "20", "the resumed run left no 20 in its checkpoint")
+    fresh = os.path.join(tmp, "fresh.ckpt")
+    run_cli(["--backend", hybrid, "--no-strict", "--checkpoint", fresh],
+            fasta, "the clean bench set, fresh checkpoint", golden)
+    with open(fresh) as f:
+        check(f.read() == "20", "the whole run left no 20 in its checkpoint")
+
+
+def equality_sets(tmp, backend="hybrid"):
+    """Phase 5b: the hybrid on the bench's other equality sets."""
+    import io
+
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.pipeline import make_batcher, run_file
+    from mtr_tpu_torch.testutil.golden_sets import read_golden, write_set
+
+    for name in ("bench_structured", "bench_100x10_100", "bench_800k"):
+        fasta = write_set(name, tmp)
+        cfg = MTRConfig(backend=backend)
+        batcher = make_batcher(cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        run_file(fasta, cfg, out, batcher=batcher)
+        dt = time.perf_counter() - t0
+        same_as_golden(out.getvalue(), read_golden(name),
+                       f"port {backend}, {name}")
+        cells = getattr(getattr(batcher, "device", None), "cells", 0)
+        info(f"{name}, port {backend}: identical to its golden, "
+             f"{out.getvalue().count(chr(10))} records, {dt:.3f} s, "
+             f"{read_counts()['counts']} counts launches, device cells "
+             f"{cells} ({card_line()})")
+
+
+def mesh_path(fasta, golden, one_device, slots=MESH_SLOTS):
+    """Phase 5c: the mesh, with every slot on this one card.  `one_device`
+    is phase 3b's (launch counts, seconds).  Returns the launch counts of
+    the sharded bench run."""
+    import io
+
+    import torch
+
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.entry import entry
+    from mtr_tpu_torch.ops.wrap_dp_counts import wrap_dp_counts_plain
+    from mtr_tpu_torch.parallel.mesh import make_mesh, sharded_wrap_dp_step
+    from mtr_tpu_torch.pipeline import ShardedTorchDPBatcher, run_file
+
+    dev = slots[0]
+    on_card = torch.device(dev).type == "cuda"
+    note = (f"{len(slots)} slots, all of them {dev}: this shows that the "
+            f"split is exact, not that it scales")
+
+    reset_counts()
+    step, args = entry(dev)
+    counts, best = step(*args)
+    scal, reps, units = (torch.from_numpy(a).to(dev) for a in args)
+    want = wrap_dp_counts_plain(scal, reps.to(torch.int8),
+                                units.to(torch.int8))
+    check(read_counts()["counts"] == int(on_card),
+          "entry()'s step launched no counts kernel")
+    check(torch.equal(counts[:, :11], want[:, :11]) and bool(
+        (best[:, 1] > 0).all()), "entry()'s step disagrees with the plain "
+          "version")
+    info(f"entry(): one wrap_dp_counts step at (8, 128, 256) equals the "
+         f"plain version, scores {best[:, 1].tolist()}")
+
+    mesh = make_mesh(devices=list(slots))
+    rng = np.random.default_rng(540)
+    b, u_span, r_pad = 16, 128, 256
+    scal = np.zeros((b, 8), np.int32)
+    reps = np.full((b, r_pad), -1, np.int8)
+    units = np.full((b, u_span), -2, np.int8)
+    for q in range(b):
+        ul, rl = int(rng.integers(2, 129)), int(rng.integers(10, r_pad + 1))
+        unit = rng.integers(0, 4, ul).astype(np.int8)
+        reps[q, :rl] = periodic_rep(rng, unit, rl)
+        units[q, :ul] = unit
+        scal[q, :5] = (rl, ul, *SCHEMES[q % 3])
+    reset_counts()
+    one, _ = sharded_wrap_dp_step(make_mesh(devices=[dev]), b, u_span,
+                                  r_pad)(scal, reps, units)
+    n_one = read_counts()["counts"]
+    cut, _ = sharded_wrap_dp_step(mesh, b, u_span, r_pad)(scal, reps, units)
+    n_cut = read_counts()["counts"] - n_one
+    cols = [c for c in range(15) if c != 7]  # 7: the launch's final wrap row
+    check(torch.equal(one[:, cols], cut[:, cols]),
+          "sharded_wrap_dp_step differs from the one launch")
+    check(not on_card or (n_one, n_cut) == (1, len(slots)),
+          f"sharded_wrap_dp_step launched {n_cut} kernels, one launch {n_one}")
+    info(f"sharded_wrap_dp_step, {b} jobs over {note}: equal to the one "
+         f"launch in every column but 7, {n_cut} launches against {n_one}")
+
+    cfg = MTRConfig(backend="device", use_device_walks=False)
+    before = timer_snapshot()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    run_file(fasta, cfg, out, batcher=ShardedTorchDPBatcher(mesh))
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    di_s = timer_delta(before).get("di_device", 0.0)
+    same_as_golden(out.getvalue(), golden, "port device under the sharded "
+                   "batcher")
+    base, base_dt = one_device
+    info(f"bench set, port device (host walks) under ShardedTorchDPBatcher, "
+         f"{note}: identical to the golden, {dt:.3f} s, DI seconds "
+         f"{di_s:.3f} (one device {base_dt:.3f} s); counts launches {launches['counts']} (one "
+         f"device {base['counts']}), consensus launches "
+         f"{launches['consensus']} ({base['consensus']}), device-DI passes "
+         f"{launches['di']}, {launches['di_sharded']} of them cut over the "
+         f"mesh ({card_line()})")
+    check(launches["di_sharded"] > 0 and
+          launches["di_sharded"] == launches["di"],
+          "the sharded batcher's run did not cut its DI over the mesh")
+    if on_card:
+        n = len(slots)
+        for name in ("counts", "consensus"):
+            # a part of fewer jobs than slots launches fewer kernels
+            check(base[name] < launches[name] <= n * base[name],
+                  f"sharded {name} launches {launches[name]}, one device "
+                  f"{base[name]}")
+        have = torch.cuda.device_count()
+        try:
+            make_mesh(have + 1)
+        except RuntimeError as e:
+            info(f"make_mesh({have + 1}) on {have} card(s) raises: {e}")
+        else:
+            raise SmokeFailure(f"make_mesh({have + 1}) did not raise on "
+                               f"{have} card(s)")
+    return launches
+
+
+def two_process_path(fasta, golden, single, tmp, backend="hybrid"):
+    """Phase 5d: two run_file_sharded workers (gloo) that share the one
+    card, against the one-process run."""
+    import io
+    import socket
+
+    from mtr_tpu_torch.clustering import pack_records
+    from mtr_tpu_torch.parallel.distributed import merge_outputs
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    prefix = os.path.join(tmp, "two_proc")
+    worker = os.path.join(HERE, "tests", "_torch_dist_worker.py")
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, prefix, fasta, backend], cwd=HERE,
+        env={**env, "RANK": str(rank), "WORLD_SIZE": "2",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"a worker failed: {err[-2000:]}")
+            info("  " + out.strip())
+    finally:
+        for p in procs:
+            p.kill()
+    dt = time.perf_counter() - t0
+    merged = io.StringIO()
+    merge_outputs(prefix, 2, merged)
+    same_as_golden(merged.getvalue(), golden, "two processes, merged")
+    records, per_read = single["records"], single["per_read"]
+    firsts = np.cumsum([0] + [per_read[r] for r in range(BENCH_READS)])
+    want = pack_records([rec for rank in range(2)
+                         for r in range(rank, BENCH_READS, 2)
+                         for rec in records[firsts[r] : firsts[r + 1]]])
+    g0, g1 = (np.load(f"{prefix}.gather{rank}.npy") for rank in range(2))
+    check(g0.shape == (len(records), 20) and np.array_equal(g0, g1)
+          and np.array_equal(g0, want),
+          "gather_records_multihost differs between the ranks or from the "
+          "one-process run")
+    info(f"two processes on the one card ({backend}, gloo): merged output "
+         f"identical to the golden, {len(g0)} records' columns gathered on "
+         f"both ranks; {dt:.3f} s from start to both exits, processes' "
+         f"start-up included (one process, {backend} in this process: "
+         f"{single['hybrid_s']:.3f} s; {card_line()})")
+    return dt
+
+
+def accuracy_path(tmp, backend="hybrid"):
+    """Phase 5e: tests/test_accuracy.py's pinned counts (unit 100 x 10, 50
+    reads, seed 777) through the port; byte parity makes them exact."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from accuracy_sweep_torch import sweep
+
+    exact, ratios, dt = sweep(100, 10, 50, 777, backend, tmp)
+    got = (exact, sum(r >= 0.99 for r in ratios),
+           sum(r >= 0.98 for r in ratios))
+    info(f"accuracy, unit 100 x 10, 50 reads, port {backend}: exact "
+         f"{got[0]}/50, ratio >= 0.99: {got[1]}, >= 0.98: {got[2]} (pinned "
+         f"{ACCURACY_PINS}), {dt:.3f} s")
+    check(got == ACCURACY_PINS, f"accuracy counts {got} differ from the "
+          f"pinned {ACCURACY_PINS}")
 
 
 class Spies:
@@ -1398,12 +1711,19 @@ def main() -> int:
         build_dir = os.path.join(HERE, "build")
         os.makedirs(build_dir, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-            fasta, golden, hybrid_rate, host_rate, counts_launches = (
-                main_path(tmp))
+            (fasta, golden, hybrid_rate, host_rate, counts_launches,
+             single) = main_path(tmp)
             walk_worst, walk_bad = walk_vs_references(fasta)
-            device_path(fasta, golden, hybrid_rate, host_rate)
+            one_device = device_path(fasta, golden, hybrid_rate, host_rate)
             launches, spies = device_walk_path(fasta, golden)
             prefilter_path(fasta, golden)
+            t_new = time.perf_counter()
+            cli_modes(fasta, tmp)
+            equality_sets(tmp)
+            mesh_launches = mesh_path(fasta, golden, one_device)
+            two_proc_s = two_process_path(fasta, golden, single, tmp)
+            accuracy_path(tmp)
+            info(f"phases 5a-5e: {time.perf_counter() - t_new:.1f} s")
             counts, plain_ms = time_kernel()
             profiled = hybrid_profile(fasta, golden)
         cons_rows = replay_cons(spies.cons)
@@ -1446,6 +1766,7 @@ def main() -> int:
         "source": "mtr_tpu_torch/csrc/wrap_dp_counts.cu",
         "replaces": REPLACES,
         "launches": counts_launches,
+        "mesh_launches": mesh_launches["counts"],
         "max_abs_err": worst,
         "ms": c200["ms"],
         "plain_ms": plain_ms,
@@ -1464,6 +1785,7 @@ def main() -> int:
         "source": "mtr_tpu_torch/csrc/wrap_dp_consensus.cu",
         "replaces": CONS_REPLACES,
         "launches": launches["consensus"],
+        "mesh_launches": mesh_launches["consensus"],
         "max_abs_err": max(cons_worst, cons_heavy["max_abs_err"]),
         "ms": cons_heavy["ms"]["now"],
         "plain_ms": cons_heavy["plain_ms"],
@@ -1498,7 +1820,10 @@ def main() -> int:
         "heaviest_launch": heaviest(walk_heavy, (
             "launch", "jobs", "v_pad", "rows", "max_steps", "steps",
             "lookups")),
-    }]}))
+    }], "mesh": {"slots": list(MESH_SLOTS),
+                 "di_sharded_passes": mesh_launches["di_sharded"]},
+        "two_process_s": two_proc_s,
+        "one_process_hybrid_s": single["hybrid_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,9 @@ there is no Lloyd k-means):
 The pairwise Manhattan distances in step 4 are one batched |a-b|
 reduction over the (G, 16) histogram matrix, in plain PyTorch on the
 run's device (the CUDA card under backends auto / hybrid / device, the
-CPU under host / oracle), in exact int32 arithmetic.  The multi-host
-all-gather of mtr_tpu/clustering.py is not here: it waits for the port's
-multi-GPU work.
+CPU under host / oracle), in exact int32 arithmetic.  In a multi-process
+run `gather_records_multihost` all-gathers every process's records over
+torch.distributed first.
 """
 
 from __future__ import annotations
@@ -156,4 +156,49 @@ def cluster_repeats(
                 )
             )
     out.sort(key=lambda c: (-c.group_freq, c.rep_id, c.global_id))
+    return out
+
+
+PACKED_COLUMNS = 20  # period, unit count, matches, repeat length, 16 2-mers
+
+
+def pack_records(records: list[RepeatRecord]) -> np.ndarray:
+    """(n, 20) int32: the fields cluster_repeats reads, one row a record."""
+    if not records:
+        return np.zeros((0, PACKED_COLUMNS), np.int32)
+    return np.array(
+        [[rec.rep_period, rec.num_freq_unit, rec.num_matches, rec.repeat_len]
+         + list(rec.freq_2mer) for rec in records], dtype=np.int32)
+
+
+def gather_records_multihost(local_records: list[RepeatRecord]):
+    """All-gather fixed-width record arrays across a torch.distributed run
+    so every process can run cluster_repeats on the full set, in rank
+    order.  Processes hold different numbers of records: the counts are
+    gathered first, the rows padded to the largest, gathered once, and
+    stripped.  With one process, or no process group, this is the
+    identity."""
+    import torch
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return local_records
+    world = dist.get_world_size()
+    packed = torch.from_numpy(pack_records(local_records))
+    counts = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(counts, torch.tensor([len(packed)], dtype=torch.int64))
+    counts = [int(c) for c in counts]
+    padded = torch.zeros((max(counts), PACKED_COLUMNS), dtype=torch.int32)
+    padded[: len(packed)] = packed
+    rows = [torch.empty_like(padded) for _ in range(world)]
+    dist.all_gather(rows, padded)
+    out = []
+    for n, part in zip(counts, rows):
+        for row in part[:n].tolist():
+            rec = RepeatRecord()
+            rec.rep_period, rec.num_freq_unit = row[0], row[1]
+            rec.num_matches, rec.repeat_len = row[2], row[3]
+            rec.freq_2mer = row[4:PACKED_COLUMNS]
+            out.append(rec)
     return out

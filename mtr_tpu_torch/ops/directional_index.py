@@ -14,7 +14,14 @@ Codes are padded to a POS_BUCKETS length with -1, as in JAX; entries
 whose windows reach past the codes are garbage and never read.  Every
 device-to-host copy is an explicit .cpu() of the positions the caller
 uses.  `make_di_compute` returns the `di_compute` plug-in of
-mtr_tpu.oracle.directional_index.fill_directional_index_with_end.
+mtr_tpu_torch.oracle.directional_index.fill_directional_index_with_end.
+
+Over a mesh of several slots (parallel/mesh.py) the Manhattan pass is cut
+by position (`sliding_l1_sharded`, `make_di_manhattan_sharded`; the JAX
+original, :173-285, is a shard_map with a ring halo exchange): one
+contiguous block of positions a slot, each computed from its own codes plus
+the 2w codes to its right.  The sums are integers, so the blocks put
+together equal the one-device pass bit for bit.
 """
 
 from __future__ import annotations
@@ -27,8 +34,11 @@ from mtr_tpu_torch.utils.timers import TIMERS
 POS_BUCKETS = (16384, 131072, 1048576 + 65536)
 _CHUNK = 256
 
-# device DI passes since the last reset (the main path shows it ran here)
+# device DI passes since the last reset (the main path shows it ran here),
+# and those of them cut over a mesh; the -c summary counts them by kind
+# (di_manhattan_passes, di_pearson_passes, di_sharded_passes)
 CALLS = 0
+SHARDED_CALLS = 0
 
 
 def _bucket(n: int) -> int:
@@ -87,6 +97,7 @@ def sliding_l1_device(vals: np.ndarray, w: int, n_out: int,
     while 4**k <= vmax:
         k += 1
     CALLS += 1
+    TIMERS.count("di_manhattan_passes")
     D = _sliding_l1_device(_padded_codes(vals, n_pos, device), k, w)
     return D[:n_out].cpu().numpy()
 
@@ -135,6 +146,7 @@ def di_pearson_device(buf: np.ndarray, di_len: int, w: int, k: int, rsl: int,
         return di_tmp
     n_pos = n_i + 3 * w - 1
     CALLS += 1
+    TIMERS.count("di_pearson_passes")
     moments = _pearson_moments_device(_padded_codes(buf, n_pos, device), k, w)
     q0, q1, q2, ip01, ip12 = (
         a[:n_i].cpu().numpy().astype(np.int64) for a in moments)
@@ -150,9 +162,62 @@ def di_pearson_device(buf: np.ndarray, di_len: int, w: int, k: int, rsl: int,
     return di_tmp
 
 
+def sliding_l1_sharded(vals: np.ndarray, w: int, n_out: int, mesh, k: int,
+                       halo: int = 20480) -> np.ndarray:
+    """Drop-in for sliding_l1 with the positions cut over `mesh`: slot s
+    computes D for positions [s * local_n, (s + 1) * local_n) from its own
+    block of codes plus the 2w codes to its right, which reach into as many
+    later blocks as they need (the JAX original's ring hops) and read -1
+    past the last code.  `halo` is the longest halo the caller's sweep may
+    ask for (2 * w <= halo, as in JAX, where it sizes the program)."""
+    global CALLS, SHARDED_CALLS
+    if 2 * w > halo:
+        raise ValueError(f"window {w} needs a halo of {2 * w} > {halo}")
+    n_pos = n_out + 2 * w - 1
+    local_n = -(-max(n_pos, 1) // mesh.size)
+    codes = np.full(local_n * mesh.size + 2 * w, -1, np.int32)
+    codes[:n_pos] = vals[:n_pos]
+    CALLS += 1
+    SHARDED_CALLS += 1
+    TIMERS.count("di_sharded_passes")
+    blocks = []
+    for s, dev in enumerate(mesh.devices):
+        ext = torch.from_numpy(
+            codes[s * local_n : (s + 1) * local_n + 2 * w]).to(dev)
+        blocks.append(_sliding_l1_device(ext, k, w)[:local_n])
+    # every slot's pass is queued before the first copy back waits
+    return np.concatenate([b.cpu().numpy() for b in blocks])[:n_out]
+
+
+def make_di_manhattan_sharded(mesh):
+    """The di_compute plug-in of fill_directional_index_with_end that runs
+    each Manhattan pass cut by position over `mesh` (counterpart of
+    mtr_tpu/ops/directional_index.py:248-271)."""
+
+    def di_compute(buf, di_len: int, w: int, k: int, rsl: int):
+        di_tmp = np.full(di_len, -1.0)
+        n_i = di_len - w - rsl - k + 1
+        if n_i <= 0:
+            return di_tmp
+        n_pos = n_i + 3 * w - 1
+        kk = 1
+        vmax = int(buf[:n_pos].max()) if n_pos > 0 else 0
+        while 4**kk <= vmax:
+            kk += 1
+        with TIMERS.section("di_device"):
+            D = sliding_l1_sharded(buf, w, n_i + w, mesh, kk)
+        d01 = D[:n_i]
+        d12 = D[w : w + n_i]
+        di_tmp[w : w + n_i] = (d01 - d12) / float(2 * w)
+        return di_tmp
+
+    return di_compute
+
+
 def make_di_compute(device, manhattan: bool):
-    """The di_compute plug-in of fill_directional_index_with_end, running
-    each (k, w) pass on `device`."""
+    """The di_compute plug-in of
+    mtr_tpu_torch.oracle.directional_index.fill_directional_index_with_end,
+    running each (k, w) pass on `device`."""
     device = torch.device(device)
     fn = di_manhattan_device if manhattan else di_pearson_device
 

@@ -232,6 +232,19 @@ def move_row_bytes(unit_len):
     return 32 * (1 + (c > 4) * 1 + (c > 8) * 2)
 
 
+def cap_parts(move_bytes: list[int], cap: int) -> list[int]:
+    """Cut a longest-first consensus group so that each launch's move
+    scratch (each job's packed moves, rep_len x move_row_bytes) stays
+    within cap bytes; returns the cut points."""
+    cuts, acc = [], 0
+    for q, size in enumerate(move_bytes):
+        if acc and acc + size > cap:
+            cuts.append(q)
+            acc = 0
+        acc += size
+    return cuts + [len(move_bytes)]
+
+
 def pack_moves(moves: torch.Tensor, scal: torch.Tensor):
     """The kernel's move layout, stated in plain PyTorch: moves (r_pad, B,
     u_pad) uint8 codes (as wrap_dp_fill_plain returns them) -> (packed

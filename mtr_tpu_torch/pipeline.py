@@ -9,7 +9,8 @@ port's own host modules.  The device leg runs the wrap-around DP jobs on a
 CUDA card (counts mode through ops/wrap_dp_counts.py, consensus mode
 through ops/wrap_dp_consensus.py) and, under backend "device", the DI
 sliding windows of long reads (ops/directional_index.py) and the DBG walks
-(ops/dbg_device.py).
+(ops/dbg_device.py).  ShardedTorchDPBatcher cuts every launch over a
+device mesh (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -28,9 +29,13 @@ from mtr_tpu_torch.chaining import chain_records
 from mtr_tpu_torch.config import DEFAULT_CONFIG, MTRConfig
 from mtr_tpu_torch.io.fasta import Read, iter_fasta
 from mtr_tpu_torch.ops.dbg_device import dbg_walk_device_batch, native_walks
-from mtr_tpu_torch.ops.directional_index import make_di_compute
+from mtr_tpu_torch.ops.directional_index import (
+    make_di_compute,
+    make_di_manhattan_sharded,
+)
 from mtr_tpu_torch.ops.mf_filter import walked_mask
 from mtr_tpu_torch.ops.wrap_dp_consensus import (
+    cap_parts,
     move_row_bytes,
     wrap_dp_consensus,
 )
@@ -54,6 +59,12 @@ from mtr_tpu_torch.oracle.directional_index import (
     fill_directional_index_with_end,
 )
 from mtr_tpu_torch.oracle.wrap_dp import _assign
+from mtr_tpu_torch.parallel.mesh import (
+    make_mesh,
+    replicate,
+    sharded_resident,
+    split_bounds,
+)
 from mtr_tpu_torch.records import RepeatRecord, ratio_less
 from mtr_tpu_torch.utils.encoding import decode_bases, encode_bases
 from mtr_tpu_torch.utils.timers import TIMERS
@@ -519,13 +530,7 @@ def _cap_parts(move_bytes: list[int]) -> list[int]:
     """Cut a longest-first consensus group so that each launch's move
     scratch (each job's packed moves, rep_len x move_row_bytes) stays
     within MOVES_BYTES_CAP; returns the cut points."""
-    cuts, acc = [], 0
-    for q, size in enumerate(move_bytes):
-        if acc and acc + size > MOVES_BYTES_CAP:
-            cuts.append(q)
-            acc = 0
-        acc += size
-    return cuts + [len(move_bytes)]
+    return cap_parts(move_bytes, MOVES_BYTES_CAP)
 
 
 class TorchDPBatcher:
@@ -567,8 +572,11 @@ class TorchDPBatcher:
             off[id(o)] = p
             p += len(o)
         self._offsets = off
-        self._flat = buf[:total].to(self.device, non_blocking=True,
-                                    copy=True)
+        self._flat = self._upload(buf[:total])
+
+    def _upload(self, flat: torch.Tensor) -> torch.Tensor:
+        """The batch's flat reads on the device."""
+        return flat.to(self.device, non_blocking=True, copy=True)
 
     def run(self, jobs: list[DPJob], deduped: bool = False) -> None:
         uniq_jobs, remap = (jobs, None) if deduped else dedup_jobs(jobs)
@@ -637,21 +645,10 @@ class TorchDPBatcher:
             unit = jobs[part[rows[0]]].unit
             units[np.asarray(rows), : len(unit)] = unit
             scal[rows, 1] = len(unit)
-        self._check_bounds(scal, starts, u_span)
+        factor = (_factor(jobs[i].scheme for i in part)
+                  if mode == "consensus" else 0)
         with TIMERS.section("dp_dispatch"):
-            dev = self.device
-            args = (
-                self._flat,
-                torch.from_numpy(starts.astype(np.int32)).to(dev),
-                torch.from_numpy(scal).to(dev),
-                torch.from_numpy(units).to(dev),
-                u_span,
-            )
-            if mode == "counts":
-                out = wrap_dp_counts(*args)
-            else:
-                out = wrap_dp_consensus(
-                    *args, _factor(jobs[i].scheme for i in part))[0]
+            out = self._launch(mode, starts, scal, units, u_span, factor)
         TIMERS.count("dp_jobs", n)
         TIMERS.count("dp_chunks")
         cells = int((rep_len * scal[:, 1]).sum())
@@ -660,6 +657,22 @@ class TorchDPBatcher:
         else:
             self.cons_cells += cells
         return out
+
+    def _launch(self, mode, starts, scal, units, u_span,
+                factor) -> torch.Tensor:
+        """One launch of the mode's op on a part's host arrays."""
+        self._check_bounds(scal, starts, u_span)
+        dev = self.device
+        args = (
+            self._flat,
+            torch.from_numpy(starts.astype(np.int32)).to(dev),
+            torch.from_numpy(scal).to(dev),
+            torch.from_numpy(units).to(dev),
+            u_span,
+        )
+        if mode == "counts":
+            return wrap_dp_counts(*args)
+        return wrap_dp_consensus(*args, factor)[0]
 
     def _check_bounds(self, scal, starts, u_span) -> None:
         """The kernels' own bounds (unpacked int32), the same for both:
@@ -686,6 +699,37 @@ class TorchDPBatcher:
         for idx, row in zip(part, fused.tolist()):
             m, x, ins, dele, scanned, i_final = row[:6]
             jobs[idx].result = ((m, x, ins, dele, scanned), i_final, row[9])
+
+
+class ShardedTorchDPBatcher(TorchDPBatcher):
+    """TorchDPBatcher whose launches are cut over a device mesh
+    (counterpart of mtr_tpu.pipeline.ShardedWrapDPBatcher): the batch's
+    flat reads go once to every distinct device of the mesh, and each
+    part's jobs are split evenly and contiguously over the mesh's slots,
+    one launch a slot (parallel/mesh.sharded_resident; no job is padded or
+    dropped).  Results concatenate on the batch axis, so the output equals
+    the one-device batcher's bit for bit.  It is reached by handing it to
+    run_file(..., batcher=...), which also cuts the Manhattan DI of long
+    reads over its mesh."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh.devices[0])
+        self.mesh = mesh
+        self._flats: dict = {}
+
+    def _upload(self, flat: torch.Tensor) -> torch.Tensor:
+        self._flats = replicate(self.mesh, flat)
+        return self._flats[self.device]
+
+    def _launch(self, mode, starts, scal, units, u_span,
+                factor) -> torch.Tensor:
+        bounds = split_bounds(len(scal), self.mesh.size)
+        for lo, hi in zip(bounds, bounds[1:]):
+            self._check_bounds(scal[lo:hi], starts[lo:hi], u_span)
+        out = sharded_resident(
+            self.mesh, mode, self._flats, starts.astype(np.int32), scal,
+            units, u_span, factor, MOVES_BYTES_CAP)
+        return out if mode == "counts" else out[0]
 
 
 class TorchHybridDPBatcher:
@@ -830,6 +874,11 @@ def batcher_device(batcher) -> torch.device:
     if isinstance(batcher, TorchDPBatcher):
         return batcher.device
     return torch.device("cuda")
+
+
+def batcher_mesh(batcher):
+    """The mesh a port batcher cuts its launches over, or None."""
+    return getattr(batcher, "mesh", None)
 
 
 def _use_mf_filter(cfg: MTRConfig, n_q: int, device) -> bool:
@@ -1102,7 +1151,11 @@ def run_file(
     on the batcher's device (CUDA unless the batcher is a TorchDPBatcher
     on another device), as mtr_tpu does; every other backend keeps DI
     and the walks on the host, the hybrid's opt-in walk pre-filter
-    aside."""
+    aside.  The Manhattan DI is cut by position over a mesh of more than
+    one slot (ops/directional_index.make_di_manhattan_sharded): the mesh
+    of a ShardedTorchDPBatcher, or every card when no batcher is given
+    and there is more than one (mtr_tpu/pipeline.py:1723-1728); Pearson
+    stays on one device."""
     import gc
     import sys
 
@@ -1117,10 +1170,19 @@ def run_file(
     arena = Arena(cfg.max_input_length)
     if batcher is None:
         batcher = make_batcher(cfg)
+        # as mtr_tpu: more than one card cuts the long reads' Manhattan DI
+        # over all of them
+        mesh = (make_mesh() if cfg.backend == "device"
+                and torch.cuda.device_count() > 1 else None)
+    else:
+        mesh = batcher_mesh(batcher)
     device = batcher_device(batcher)
     di_compute = None
     if cfg.backend == "device":
-        di_compute = make_di_compute(device, cfg.manhattan_distance)
+        if cfg.manhattan_distance and mesh is not None and mesh.size > 1:
+            di_compute = make_di_manhattan_sharded(mesh)
+        else:
+            di_compute = make_di_compute(device, cfg.manhattan_distance)
     batch: list[ReadState] = []
     done_reads = 0
     skip = 0

@@ -1,0 +1,125 @@
+"""The position-sharded Manhattan DI stencil on CPU slots against the port's
+one-device pass, the oracle's sliding_l1 and mtr_tpu's shard_map stencil on
+JAX's 8-device CPU mesh, and wired into the pipeline.  The sums are
+integers: every comparison is exact."""
+
+import dataclasses
+import io
+
+import numpy as np
+import pytest
+
+from mtr_tpu_torch import pipeline as tp
+from mtr_tpu_torch.config import MTRConfig
+from mtr_tpu_torch.ops import directional_index as di_ops
+from mtr_tpu_torch.oracle.directional_index import sliding_l1
+from mtr_tpu_torch.parallel.mesh import make_mesh
+from mtr_tpu_torch.testutil.rand_seq import write_fasta
+
+K = 3
+N_VALS, N_OUT = 20000, 17000
+
+
+def cpu_mesh(n):
+    return make_mesh(devices=["cpu"] * n)
+
+
+@pytest.fixture(scope="module")
+def vals():
+    return np.random.default_rng(7).integers(0, 4**K, N_VALS).astype(np.int32)
+
+
+# with 8 slots a block is 2,125 + w / 4 positions: w = 1400 needs 2,800
+# codes to its right, which reach past the next block into the one after
+# (the JAX original's second ring hop)
+@pytest.mark.parametrize("w", [5, 40, 640, 1400])
+def test_sliding_l1_sharded_equals_one_device_oracle_and_jax(vals, w):
+    from mtr_tpu.ops.directional_index import sliding_l1_sharded as ref
+    from mtr_tpu.parallel.mesh import make_mesh as ref_mesh
+
+    want = sliding_l1(vals, w, N_OUT)
+    np.testing.assert_array_equal(
+        di_ops.sliding_l1_device(vals, w, N_OUT, "cpu"), want)
+    np.testing.assert_array_equal(
+        ref(vals, w, N_OUT, ref_mesh(8), K, halo=4096), want)
+    for n in (2, 4, 8):
+        got = di_ops.sliding_l1_sharded(vals, w, N_OUT, cpu_mesh(n), K,
+                                        halo=4096)
+        assert got.dtype == np.int64 and got.shape == (N_OUT,)
+        np.testing.assert_array_equal(got, want)
+    local_n = -(-(N_OUT + 2 * w - 1) // 8)
+    assert (2 * w > local_n) == (w == 1400)
+
+
+def test_sliding_l1_sharded_keeps_the_halo_bound(vals):
+    with pytest.raises(ValueError, match="halo"):
+        di_ops.sliding_l1_sharded(vals, 1025, 100, cpu_mesh(2), K, halo=2048)
+    # more slots than positions: the tail blocks are all padding
+    got = di_ops.sliding_l1_sharded(vals, 2, 3, cpu_mesh(8), K)
+    np.testing.assert_array_equal(got, sliding_l1(vals, 2, 3))
+
+
+def test_di_compute_sharded_equals_one_device(vals):
+    """The plug-in's placement and bounds, against make_di_compute's."""
+    di_len, w, k, rsl = 12000, 320, K, 1200
+    buf = np.zeros(di_len + 16, np.int32)
+    buf[: di_len - k + 1] = vals[: di_len - k + 1]
+    want = di_ops.make_di_compute("cpu", True)(buf, di_len, w, k, rsl)
+    got = di_ops.make_di_manhattan_sharded(cpu_mesh(4))(buf, di_len, w, k,
+                                                        rsl)
+    np.testing.assert_array_equal(got, want)
+    assert (got[w : w + 100] != -1.0).any()
+    short = di_ops.make_di_manhattan_sharded(cpu_mesh(4))(buf, 100, 90, k, 40)
+    assert (short == -1.0).all()
+
+
+def test_pipeline_uses_sharded_di_and_matches_host(monkeypatch, tmp_path):
+    """A ~12 kb read (unit 10 x 400 and flanks) past a small DI threshold,
+    under a sharded batcher: run_file cuts its Manhattan DI over the
+    batcher's mesh, and the output equals the host backend's."""
+    calls = []
+    real = di_ops.sliding_l1_sharded
+
+    def spy(vals, w, n_out, mesh, *rest, **kw):
+        calls.append((w, mesh.size))
+        return real(vals, w, n_out, mesh, *rest, **kw)
+
+    monkeypatch.setattr(di_ops, "sliding_l1_sharded", spy)
+    fa = str(tmp_path / "long.fasta")
+    write_fasta(fa, fa[:-6] + ".units", 10, 400, 2.0, 2.0, 2.0, 4000, 4000,
+                1, seed=11)
+    host_out = io.StringIO()
+    tp.run_file(fa, MTRConfig(backend="host"), host_out)
+
+    cfg = dataclasses.replace(
+        MTRConfig(backend="device", use_device_walks=False),
+        device_di_threshold=8192)
+    di_ops.CALLS = di_ops.SHARDED_CALLS = 0
+    dev_out = io.StringIO()
+    tp.run_file(fa, cfg, dev_out,
+                batcher=tp.ShardedTorchDPBatcher(cpu_mesh(4)))
+    assert host_out.getvalue() == dev_out.getvalue()
+    assert host_out.getvalue().strip(), "no records produced"
+    assert calls, "the sharded DI stencil never engaged"
+    assert all(size == 4 for _, size in calls)
+    assert di_ops.SHARDED_CALLS == di_ops.CALLS == len(calls)
+
+    # Pearson stays on one device, and so does a mesh of one slot (a
+    # short read past a threshold of 100 bases shows the routing)
+    small = str(tmp_path / "small.fasta")
+    write_fasta(small, small[:-6] + ".units", 10, 20, 2.0, 2.0, 2.0, 100,
+                100, 1, seed=11)
+    host_small = io.StringIO()
+    tp.run_file(small, MTRConfig(backend="host"), host_small)
+    cfg = dataclasses.replace(cfg, device_di_threshold=100)
+    calls.clear()
+    for cfg_i, n in ((dataclasses.replace(cfg, manhattan_distance=False), 2),
+                     (cfg, 1), (cfg, 2)):
+        before = di_ops.CALLS
+        out = io.StringIO()
+        tp.run_file(small, cfg_i, out,
+                    batcher=tp.ShardedTorchDPBatcher(cpu_mesh(n)))
+        assert di_ops.CALLS > before
+        assert bool(calls) == (cfg_i is cfg and n == 2)
+        if cfg_i is cfg:
+            assert out.getvalue() == host_small.getvalue()
