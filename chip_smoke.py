@@ -27,6 +27,15 @@ Phases, in order; any failure exits non-zero before the result line:
      tests/golden/bench_200x200.out (mtr_tpu's host backend on that set),
      with kernel launches and device-leg cells counted; then the in-repo
      100x10 golden;
+  2d. the directional-index kernels (csrc/directional_index.cu: the
+     Manhattan sliding L1 and the Pearson moments) against their plain
+     versions on the card, with zero tolerance: every (k, w) of the DI
+     sweep, n_out below, at and past a tile, w above a tile, alphabets 4,
+     64 and 1,024 with runs of equal codes, a stale tail of codes >= 4^k
+     (Pearson skips them), lengths just past the old position buckets
+     16,384 / 131,072 / 1,114,112, and every pass of one 800 kbp read
+     (bench_800k); it runs after phase 3, which makes the temporary
+     directory;
   2c. the DBG walk kernel against stage_b_plain on the card, with zero
      tolerance, on fuzzed jobs (periodic reads with units 2-120, k 2-15
      with ranges at the read's end, homopolymer / 2-mer tie storms, walks
@@ -42,8 +51,15 @@ Phases, in order; any failure exits non-zero before the result line:
      (mtr_tpu's default: DBG walks on the card) on the bench set and the
      100x10 golden, byte-identical, with the launches of all three
      kernels, stage-A passes, speculative jobs and host-route queries
-     counted; then `python -m mtr_tpu_torch.cli --backend device` in a
+     counted, every Manhattan DI pass one launch of the DI kernel and no
+     plain DI call on the card, and the walk thread's seconds split into
+     stage A and job building, kernel launches and pulls, host route and
+     the rest; then `python -m mtr_tpu_torch.cli --backend device` in a
      subprocess, same stdout;
+  3e. the device path whole with -p's Pearson DI
+     (MTRConfig(backend="device", manhattan_distance=False)) on the bench
+     set, byte-identical to tests/golden/bench_200x200_pcc.out, every
+     Pearson pass one launch of the DI kernel;
   3d. the hybrid with MTR_TPU_MF_FILTER=1 (the walk pre-filter on the
      card), byte-identical, with the queries it filtered out;
   4. counts kernel times with CUDA events against its first design
@@ -64,7 +80,12 @@ Phases, in order; any failure exits non-zero before the result line:
      and longest walk a launch; then, heaviest first within
      WALK_PLAIN_BUDGET_S, the kernel against stage_b_plain on the launch
      (zero tolerance) and the lookups and steps stage_b_plain counts
-     there, for the bound; one device-DI pass;
+     there, for the bound;
+  4e. every DI pass of phases 3c (Manhattan) and 3e (Pearson), recorded by
+     Spies, replayed: the kernel against its plain version (zero
+     tolerance) and its CUDA-event time, summed over the run; at the
+     heaviest pass of each, the kernel alone, the pass with its copies,
+     the plain version, the host pass and the bound;
   5a. the CLI's other modes, each `python -m mtr_tpu_torch.cli` in a new
      process against a golden that mtr_tpu's host backend wrote
      (scripts/write_port_goldens.py): -p under --backend hybrid and under
@@ -79,7 +100,8 @@ Phases, in order; any failure exits non-zero before the result line:
      sharded_wrap_dp_step against one launch, the bench set under backend
      device with host walks and ShardedTorchDPBatcher (the counts and
      consensus launches of the one-device path doubled, the Manhattan DI
-     cut by position), make_mesh refusing one card more than there are;
+     cut by position, one DI kernel launch a slot and pass), make_mesh
+     refusing one card more than there are;
   5d. two processes on the one card: two run_file_sharded workers (gloo,
      hybrid), merged output and gathered record columns against the
      one-process run, both walls printed;
@@ -139,6 +161,18 @@ WALK_UNITS = (2, 3, 7, 15, 33, 60, 95, 120)
 # checks the heaviest of them
 WALK_PLAIN_BUDGET_S = 60.0
 WHALE_WIDTHS = (2048, 5000, 12000, 38371)
+DI_SOURCE = "mtr_tpu_torch/csrc/directional_index.cu"
+DI_REPLACES = {
+    "l1": "mtr_tpu/ops/directional_index.py:30 (_sliding_l1_device)",
+    "pcc": "mtr_tpu/ops/directional_index.py:106 (_pearson_moments_device)"}
+# the (k, largest w) of fill_directional_index_with_end's sweep (w = 5, 10,
+# 20, ... while w < L / 2)
+DI_SWEEP = ((1, 20), (3, 80), (5, 10240))
+# int32 operations a position the sliding update needs, for the bound:
+# Manhattan four bin updates of four operations (read, add, and |.| before
+# and after into D), Pearson six count updates of six (the count, the
+# square's change, one or two inner products)
+DI_OPS = {"l1": 16, "pcc": 36}
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -664,6 +698,130 @@ def walk_vs_references(fasta):
     return worst, tot["bad"]
 
 
+def di_diff(codes, n_out, w, n_sym, kind):
+    """A DI kernel ("l1" Manhattan, "pcc" Pearson) against its plain
+    version on one pass of codes (a CUDA tensor): the largest absolute
+    difference."""
+    import torch
+
+    from mtr_tpu_torch.ops import directional_index as di
+
+    k = n_sym.bit_length() // 2  # n_sym = 4^k
+    if kind == "l1":
+        got = di.sliding_l1_kernel(codes, n_out, w, n_sym)
+        want = di._sliding_l1_device(codes[: n_out + 2 * w - 1], k, w)
+    else:
+        got = di.pearson_moments_kernel(codes, n_out, w, n_sym)
+        want = torch.stack(di._pearson_moments_device(
+            codes[: n_out + 3 * w - 1], k, w))
+    check(tuple(got.shape) == tuple(want.shape), f"DI kernel {kind}: shape "
+          f"{tuple(got.shape)} against the plain {tuple(want.shape)}")
+    return int((got.long() - want).abs().max()) if n_out else 0
+
+
+def di_vs_plain(tmp, edges=(16384, 131072, 1048576 + 65536),
+                long_set="bench_800k"):
+    """Phase 2d: passes of n_pos just past each of `edges` (the old
+    position buckets) and every pass of the first read of `long_set`.
+    Returns the largest absolute difference (must be 0) and the passes
+    checked by kind."""
+    import torch
+
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.io.fasta import iter_fasta
+    from mtr_tpu_torch.ops import _build
+    from mtr_tpu_torch.ops import directional_index as di
+    from mtr_tpu_torch.oracle.arena import Arena
+    from mtr_tpu_torch.oracle.directional_index import (
+        fill_directional_index_with_end,
+    )
+    from mtr_tpu_torch.testutil.golden_sets import write_set
+
+    rng = np.random.default_rng(20243)
+    worst, n, spans = 0, {"l1": 0, "pcc": 0}, set()
+    t0 = time.perf_counter()
+
+    def run(codes, n_out, w, n_sym, kind, what):
+        nonlocal worst
+        span = 2 * w if kind == "l1" else 3 * w
+        t = torch.from_numpy(np.ascontiguousarray(
+            codes[: n_out + span - 1], np.int32)).cuda()
+        err = di_diff(t, n_out, w, n_sym, kind)
+        worst = max(worst, err)
+        n[kind] += 1
+        spans.add(span)
+        check(err == 0, f"DI kernel {kind} disagrees with its plain version "
+              f"({what}: n_out {n_out}, w {w}, n_sym {n_sym}; max abs err "
+              f"{err})")
+
+    def both(n_out, w, k, alphabet, what, runs=False):
+        """A Manhattan pass over codes below `alphabet` (n_sym the 4^k
+        above them) and a Pearson pass of k whose last 2w codes reach
+        `alphabet` (codes >= 4^k there are skipped)."""
+        for kind, span in (("l1", 2 * w), ("pcc", 3 * w)):
+            size = n_out + span - 1
+            if runs:  # runs of equal codes: steps that move equal codes
+                codes = np.repeat(rng.integers(0, alphabet, size),
+                                  rng.integers(1, 40, size))[:size]
+            else:
+                codes = rng.integers(0, 4**k, size)
+                codes[size - 2 * w :] = rng.integers(0, alphabet, 2 * w)
+            n_sym = (4 ** di._k_for(codes, size) if kind == "l1" else 4**k)
+            run(codes, n_out, w, n_sym, kind, what)
+
+    for k, max_w in DI_SWEEP:  # every (k, w) of the sweep
+        w = 5
+        while w <= max_w:
+            both(int(rng.integers(1, 30000)), w, k, 1024, "sweep")
+            w *= 2
+    for w in (5, 200, 2000, 10240):  # n_out around a tile; w above one
+        for span in (2 * w, 3 * w):
+            tile = di.di_tile(span)
+            for n_out in (1, tile - 1, tile, tile + 1, 4 * tile + 1):
+                both(n_out, w, 3, 64, f"tile {tile}")
+    for alphabet, k in ((4, 1), (64, 3), (1024, 5)):
+        for w in (5, 80, 2560):
+            both(int(rng.integers(1000, 20000)), w, k, alphabet,
+                 f"alphabet {alphabet}, runs", runs=True)
+    for n_pos in (e + 1 for e in edges):
+        for w in (5, 640, 5000):
+            for kind, span in (("l1", 2 * w), ("pcc", 3 * w)):
+                run(rng.integers(0, 1024, n_pos), n_pos - span + 1, w, 1024,
+                    kind, f"n_pos {n_pos}")
+    lib = _build.library()
+    for span in sorted(spans):
+        check(lib.mtr_di_tile(span) == di.di_tile(span), f"the kernel's tile "
+              f"{lib.mtr_di_tile(span)} differs from di_tile({span})")
+    n_fuzz = dict(n)
+
+    # every pass of one 800 kbp read, from the arena as the pipeline fills it
+    cfg = MTRConfig()
+    read = next(iter_fasta(write_set(long_set, tmp), cfg.max_input_length))
+    arena = Arena(cfg.max_input_length)
+    arena.load_read(read.codes)
+
+    def compare(buf, di_len, w, k, rsl):
+        n_i = di_len - w - rsl - k + 1
+        if n_i > 0:
+            n_pos = n_i + 3 * w - 1
+            run(buf, n_i + w, w, 4 ** di._k_for(buf, n_pos), "l1", "800k")
+            run(buf, n_i, w, 4**k, "pcc", "800k")
+        return np.full(di_len, -1.0)
+
+    fill_directional_index_with_end(
+        arena, read.length, 100 if read.length < 1000 else read.length // 10,
+        di_compute=compare)
+    torch.cuda.synchronize()
+    info(f"DI kernels vs plain on the card: {n_fuzz['l1']} Manhattan and "
+         f"{n_fuzz['pcc']} Pearson fuzz passes (every (k, w) of the sweep, "
+         f"n_out around tiles of {sorted({di.di_tile(x) for x in spans})}, "
+         f"alphabets 4 / 64 / 1,024 with runs, stale tails, n_pos past "
+         f"{edges}), {n['l1'] - n_fuzz['l1']} + "
+         f"{n['pcc'] - n_fuzz['pcc']} passes of the {read.length} bp read; "
+         f"max abs err {worst} ({time.perf_counter() - t0:.1f} s)")
+    return worst, n
+
+
 def timer_snapshot():
     from mtr_tpu_torch.utils.timers import TIMERS
 
@@ -804,6 +962,8 @@ def device_path(fasta, golden, hybrid_rate, host_rate):
         check(launches[name] > 0, f"the device path ran no {name} launch")
     check(launches["dbg_walk"] == 0, "use_device_walks=False walked on the "
           "device")
+    check(launches["di_l1_kernel"] == launches["di"], f"{launches['di']} "
+          f"DI passes but {launches['di_l1_kernel']} DI kernel launches")
     return launches, dt
 
 
@@ -815,6 +975,7 @@ def reset_counts():
 
     counts_op.LAUNCHES = cons_op.LAUNCHES = dw.LAUNCHES = 0
     dw.STAGE_A_CALLS = di.CALLS = di.SHARDED_CALLS = 0
+    di.KERNEL_LAUNCHES.update(di_sliding_l1=0, di_pearson_moments=0)
 
 
 def read_counts():
@@ -825,7 +986,9 @@ def read_counts():
 
     return {"counts": counts_op.LAUNCHES, "consensus": cons_op.LAUNCHES,
             "dbg_walk": dw.LAUNCHES, "stage_a": dw.STAGE_A_CALLS,
-            "di": di.CALLS, "di_sharded": di.SHARDED_CALLS}
+            "di": di.CALLS, "di_sharded": di.SHARDED_CALLS,
+            "di_l1_kernel": di.KERNEL_LAUNCHES["di_sliding_l1"],
+            "di_pcc_kernel": di.KERNEL_LAUNCHES["di_pearson_moments"]}
 
 
 def device_walk_path(fasta, golden):
@@ -868,9 +1031,24 @@ def device_walk_path(fasta, golden):
          f"{launches['di']} device-DI passes")
     info("bench set, device walks, stage seconds (threads overlap): "
          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spent.items())))
+    split = {name: spent.get(key, 0.0) for name, key in (
+        ("stage A and job building", "count_table"),
+        ("kernel launches and pulls", "walk_kernel"),
+        ("host route", "walk_host_route"))}
+    walk_s = spent.get("walks", 0.0)
+    info(f"bench set, device walks, the walk thread: walks {walk_s:.3f} s = "
+         + " + ".join(f"{k} {v:.3f}" for k, v in split.items())
+         + f" + the rest {walk_s - sum(split.values()):.3f}; wall {dt:.3f} s,"
+         f" DI seconds {spent.get('di_device', 0.0):.3f} on the reader "
+         f"thread, {launches['di_l1_kernel']} DI kernel launches for "
+         f"{launches['di']} passes, {spies.di_plain_on_card} plain DI calls "
+         f"on the card ({card_line()})")
     same_as_golden(out.getvalue(), golden, "port device (device walks)")
     for name in ("counts", "consensus", "dbg_walk", "stage_a", "di"):
         check(launches[name] > 0, f"the device path ran no {name} launch")
+    check(launches["di_l1_kernel"] == launches["di"] == len(spies.di_l1)
+          and launches["di_pcc_kernel"] == 0 and spies.di_plain_on_card == 0,
+          "the device path's DI did not run every pass through the kernel")
 
     golden_100 = os.path.join(HERE, "tests", "golden", "multi20_100x10")
     t0 = time.perf_counter()
@@ -892,6 +1070,42 @@ def device_walk_path(fasta, golden):
     check(r.returncode == 0, f"the CLI failed: {r.stderr[-2000:]}")
     same_as_golden(r.stdout, golden, "CLI --backend device")
     return launches, spies
+
+
+def pearson_device_path(fasta):
+    """Phase 3e: run_file under backend "device" with -p's Pearson DI on
+    the bench set against bench_200x200_pcc.out.  Returns the launch
+    counts and the recorded Pearson passes."""
+    import io
+
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.pipeline import make_batcher, run_file
+    from mtr_tpu_torch.testutil.golden_sets import read_golden
+
+    cfg = MTRConfig(backend="device", manhattan_distance=False)
+    batcher = make_batcher(cfg)
+    before = timer_snapshot()
+    reset_counts()
+    with Spies() as spies:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        run_file(fasta, cfg, out, batcher=batcher)
+        dt = time.perf_counter() - t0
+    launches = read_counts()
+    spent = timer_delta(before)
+    same_as_golden(out.getvalue(), read_golden("bench_200x200_pcc"),
+                   "port device -p")
+    info(f"bench set, port device -p (Pearson DI, device walks): identical "
+         f"to its golden, {dt:.3f} s, DI seconds "
+         f"{spent.get('di_device', 0.0):.3f}, {launches['di_pcc_kernel']} DI "
+         f"kernel launches for {launches['di']} passes, "
+         f"{spies.di_plain_on_card} plain DI calls on the card "
+         f"({card_line()})")
+    check(launches["di_pcc_kernel"] == launches["di"] == len(spies.di_pcc)
+          > 0 and launches["di_l1_kernel"] == 0
+          and spies.di_plain_on_card == 0,
+          "the -p device path's DI did not run every pass through the kernel")
+    return launches, spies.di_pcc
 
 
 # ------------------------------------------- phases 5a-5e: the other paths
@@ -1078,6 +1292,9 @@ def mesh_path(fasta, golden, one_device, slots=MESH_SLOTS):
             check(base[name] < launches[name] <= n * base[name],
                   f"sharded {name} launches {launches[name]}, one device "
                   f"{base[name]}")
+        check(launches["di_l1_kernel"] == n * launches["di_sharded"],
+              f"{launches['di_sharded']} sharded DI passes on {n} slots but "
+              f"{launches['di_l1_kernel']} DI kernel launches")
         have = torch.cuda.device_count()
         try:
             make_mesh(have + 1)
@@ -1158,36 +1375,54 @@ def accuracy_path(tmp, backend="hybrid"):
 
 
 class Spies:
-    """Records the inputs of every walk- and consensus-op call of a run.
-    Their callers (ops/dbg_device._run_chunk, TorchDPBatcher._dispatch)
-    look the ops up at call time, so a stand-in that records its
-    arguments and calls the real op sees every launch.  Holding the
-    arguments keeps each launch's tables alive on the card (a few GB a
-    bench run)."""
+    """Records the inputs of every walk-, consensus- and DI-kernel call of
+    a run, and counts the plain DI versions' calls on the card.  Their
+    callers (ops/dbg_device._run_chunk, TorchDPBatcher._dispatch,
+    ops/directional_index._l1 / _moments) look the ops up at call time, so
+    a stand-in that records its arguments and calls the real op sees every
+    launch.  Holding the arguments keeps each launch's tables and codes
+    alive on the card (a few GB a bench run)."""
 
     def __enter__(self):
         from mtr_tpu_torch import pipeline as tp
         from mtr_tpu_torch.ops import dbg_device as dw
+        from mtr_tpu_torch.ops import directional_index as di
 
-        self.walks, self.cons = [], []
-        self._real = real_walk, real_cons = dw.dbg_walk, tp.wrap_dp_consensus
+        self.walks, self.cons, self.di_l1, self.di_pcc = [], [], [], []
+        self.di_plain_on_card = 0
+        self._real = (dw.dbg_walk, tp.wrap_dp_consensus,
+                      di.sliding_l1_kernel, di.pearson_moments_kernel,
+                      di._sliding_l1_device, di._pearson_moments_device)
 
-        def walk(*args):
-            self.walks.append(args)
-            return real_walk(*args)
+        def recorder(into, real):
+            def call(*args):
+                into.append(args)
+                return real(*args)
+            return call
 
-        def cons(*args):
-            self.cons.append(args)
-            return real_cons(*args)
+        def plain_counter(real):
+            def call(codes, *args):
+                self.di_plain_on_card += int(codes.is_cuda)
+                return real(codes, *args)
+            return call
 
-        dw.dbg_walk, tp.wrap_dp_consensus = walk, cons
+        real = self._real
+        dw.dbg_walk = recorder(self.walks, real[0])
+        tp.wrap_dp_consensus = recorder(self.cons, real[1])
+        di.sliding_l1_kernel = recorder(self.di_l1, real[2])
+        di.pearson_moments_kernel = recorder(self.di_pcc, real[3])
+        di._sliding_l1_device = plain_counter(real[4])
+        di._pearson_moments_device = plain_counter(real[5])
         return self
 
     def __exit__(self, *exc):
         from mtr_tpu_torch import pipeline as tp
         from mtr_tpu_torch.ops import dbg_device as dw
+        from mtr_tpu_torch.ops import directional_index as di
 
-        dw.dbg_walk, tp.wrap_dp_consensus = self._real
+        (dw.dbg_walk, tp.wrap_dp_consensus, di.sliding_l1_kernel,
+         di.pearson_moments_kernel, di._sliding_l1_device,
+         di._pearson_moments_device) = self._real
         return False
 
 
@@ -1639,38 +1874,115 @@ def hybrid_profile(fasta, golden):
     return out
 
 
-def time_di():
-    """One device-DI pass (Manhattan, 131,072 position bucket, k 5, w
-    640) against the native host sliding L1: equal, and both times."""
-    import numpy as np
+def di_bound(kind, n_out, w):
+    """A DI pass's bound: DI_OPS int32 operations a position; bytes: the
+    codes read once, D (Pearson: five moments) written once as int32."""
+    span, n_res = (2 * w, 1) if kind == "l1" else (3 * w, 5)
+    return bound_ms(n_out * DI_OPS[kind],
+                    (n_out + span - 1) * 4 + n_res * n_out * 4)
+
+
+def bare_di(kind, codes, n_out, w, n_sym):
+    """A bare launcher of a DI kernel on one pass (its outputs allocated
+    once; no launch counted), for CUDA-event timing."""
+    import ctypes
+
+    import torch
+
+    from mtr_tpu_torch.ops import _build
+
+    lib = _build.library()
+    if kind == "l1":
+        out = torch.empty(n_out, dtype=torch.int32, device=codes.device)
+        fn, ptrs = lib.mtr_di_sliding_l1, [out.data_ptr()]
+    else:
+        out = torch.empty((5, n_out), dtype=torch.int32, device=codes.device)
+        fn, ptrs = lib.mtr_di_pearson_moments, [r.data_ptr() for r in out]
+    args = (codes.data_ptr(), codes.numel(), n_out, w, n_sym, *ptrs,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    def run(_keep=out):
+        err = fn(*args)
+        check(err == 0, f"DI kernel {kind} launch failed: CUDA error {err}")
+
+    return run
+
+
+def replay_di(passes, kind):
+    """Phase 4e: every recorded DI pass of a device run, the kernel
+    against its plain version (zero tolerance) and its CUDA-event ms a
+    launch.  Returns one dict a pass."""
+    rows = []
+    for n, (codes, n_out, w, n_sym) in enumerate(passes):
+        err = di_diff(codes, n_out, w, n_sym, kind)
+        bms, by = di_bound(kind, n_out, w)
+        rows.append({"launch": n, "n_out": n_out, "w": w, "n_sym": n_sym,
+                     "max_abs_err": err,
+                     "ms": event_ms(bare_di(kind, codes, n_out, w, n_sym), 3),
+                     "bound_ms": bms, "bound_by": by})
+    return rows
+
+
+def time_di(rows, passes, kind):
+    """Phase 4e at the heaviest replayed pass: the kernel alone (CUDA
+    events), the pass with its copies (numpy codes to the card and the
+    result back, host clock), the plain version on the card, the native
+    host pass (Manhattan only: the native engine's Pearson pass runs
+    inside its whole-read fill_di) and the bound."""
+    import torch
 
     from mtr_tpu_torch import native
-    from mtr_tpu_torch.ops.directional_index import make_di_compute
-    from mtr_tpu_torch.utils.encoding import rolling_kmer_codes
+    from mtr_tpu_torch.ops import directional_index as di
 
-    rng = np.random.default_rng(931)
-    L, rsl, w, k = 100000, 10000, 640, 5
-    di_len = L + 2 * rsl
-    buf = np.zeros(di_len + 16, np.int32)
-    buf[: di_len - k + 1] = rolling_kmer_codes(
-        rng.integers(0, 4, di_len).astype(np.int32), k)
-    di_compute = make_di_compute("cuda", True)
-    di_compute(buf, di_len, w, k, rsl)
-    n = 5
+    heavy = max(rows, key=lambda r: r["ms"])
+    codes, n_out, w, n_sym = passes[heavy["launch"]]
+    k = n_sym.bit_length() // 2
+    ms = min(event_ms(bare_di(kind, codes, n_out, w, n_sym), 20)
+             for _ in range(2))
+    vals = codes.cpu().numpy()
+    kernel = di.sliding_l1_kernel if kind == "l1" else \
+        di.pearson_moments_kernel
+
+    def with_copies():
+        return kernel(torch.from_numpy(vals).cuda(), n_out, w, n_sym).cpu()
+
+    def plain():
+        if kind == "l1":
+            return di._sliding_l1_device(codes, k, w)
+        return torch.stack(di._pearson_moments_device(codes, k, w))
+
+    with_copies()
     t0 = time.perf_counter()
-    for _ in range(n):
-        dev_di = di_compute(buf, di_len, w, k, rsl)
-    di_ms = (time.perf_counter() - t0) / n * 1e3
-    n_i = di_len - w - rsl - k + 1
-    t0 = time.perf_counter()
-    host_d = native.sliding_l1(buf, w, n_i + w)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    want = (host_d[:n_i] - host_d[w : w + n_i]) / float(2 * w)
-    check(np.array_equal(dev_di[w : w + n_i], want),
-          "device DI disagrees with the native sliding L1")
-    info(f"device DI pass (Manhattan, 131,072 bucket, k {k}, w {w}): "
-         f"{di_ms:.3f} ms/call incl. copies (host clock); native host "
-         f"sliding L1 {host_ms:.3f} ms")
+    for _ in range(10):
+        with_copies()
+    copies_ms = (time.perf_counter() - t0) / 10 * 1e3
+    plain_ms = event_ms(plain, 3)
+    host_ms = None
+    if kind == "l1":
+        native.sliding_l1(vals, w, n_out)
+        t0 = time.perf_counter()
+        native.sliding_l1(vals, w, n_out)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    bms, by = di_bound(kind, n_out, w)
+    run_ms = sum(r["ms"] for r in rows)
+    res = {"ms": ms, "copies_ms": copies_ms, "plain_ms": plain_ms,
+           "host_ms": host_ms, "bound_ms": bms, "bound_by": by,
+           "run_ms": run_ms, "run_bound_ms": sum(r["bound_ms"] for r in rows),
+           "passes": len(rows),
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "shape": f"k {k}, w {w}, {n_out} positions"}
+    name = "Manhattan sliding L1" if kind == "l1" else "Pearson moments"
+    host = "no native pass alone" if host_ms is None else \
+        f"native sliding L1 {host_ms:.3f} ms"
+    info(f"DI {name} kernel, the device run's {len(rows)} passes replayed "
+         f"({card_line()}): run sum {run_ms:.3f} ms, bound "
+         f"{res['run_bound_ms']:.4f} ms; max abs err against the plain "
+         f"version {res['max_abs_err']}")
+    info(f"  heaviest pass ({res['shape']}): kernel {ms:.4f} ms, with its "
+         f"copies {copies_ms:.3f} ms (host clock), plain version "
+         f"{plain_ms:.3f} ms, {host}; bound "
+         f"{bms:.5f} ms ({by}), share {bms / ms:.4f}")
+    return res
 
 
 def report_replay(name, rows, save):
@@ -1714,8 +2026,10 @@ def main() -> int:
             (fasta, golden, hybrid_rate, host_rate, counts_launches,
              single) = main_path(tmp)
             walk_worst, walk_bad = walk_vs_references(fasta)
+            di_worst, _ = di_vs_plain(tmp)
             one_device = device_path(fasta, golden, hybrid_rate, host_rate)
             launches, spies = device_walk_path(fasta, golden)
+            pcc_launches, pcc_passes = pearson_device_path(fasta)
             prefilter_path(fasta, golden)
             t_new = time.perf_counter()
             cli_modes(fasta, tmp)
@@ -1728,6 +2042,7 @@ def main() -> int:
             profiled = hybrid_profile(fasta, golden)
         cons_rows = replay_cons(spies.cons)
         walk_rows = replay_walks(spies.walks, WALK_PLAIN_BUDGET_S)
+        l1_passes = spies.di_l1
         del spies
         cons_sums, (cons_heavy, *_) = report_replay(
             "consensus kernel", cons_rows, "consensus_launches.json")
@@ -1747,7 +2062,11 @@ def main() -> int:
              f"steps, 0 mismatching): {walk_bound_run:.4f} ms; consensus "
              f"bound over the run: "
              f"{sum(r['bound_ms'] for r in cons_rows):.4f} ms")
-        time_di()
+        l1 = time_di(replay_di(l1_passes, "l1"), l1_passes, "l1")
+        pcc = time_di(replay_di(pcc_passes, "pcc"), pcc_passes, "pcc")
+        check(max(di_worst, l1["max_abs_err"], pcc["max_abs_err"]) == 0,
+              "a DI kernel disagrees with its plain version on the run's "
+              "passes")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1820,7 +2139,28 @@ def main() -> int:
         "heaviest_launch": heaviest(walk_heavy, (
             "launch", "jobs", "v_pad", "rows", "max_steps", "steps",
             "lookups")),
-    }], "mesh": {"slots": list(MESH_SLOTS),
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": DI_SOURCE,
+        "replaces": DI_REPLACES[kind],
+        "launches": count,
+        "max_abs_err": max(di_worst, r["max_abs_err"]),
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+        "run_ms": r["run_ms"],
+        "run_bound_ms": r["run_bound_ms"],
+        "passes_replayed": r["passes"],
+        "ms_with_copies": r["copies_ms"],
+        "host_ms": r["host_ms"],
+        "shape": r["shape"],
+    } for name, kind, count, r in (
+        ("di_sliding_l1", "l1", launches["di_l1_kernel"], l1),
+        ("di_pearson_moments", "pcc", pcc_launches["di_pcc_kernel"], pcc))],
+        "mesh": {"slots": list(MESH_SLOTS),
                  "di_sharded_passes": mesh_launches["di_sharded"]},
         "two_process_s": two_proc_s,
         "one_process_hybrid_s": single["hybrid_s"]}))

@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, name) for name in (
-    "wrap_dp_counts.cu", "wrap_dp_consensus.cu", "dbg_walk.cu"))
+    "wrap_dp_counts.cu", "wrap_dp_consensus.cu", "dbg_walk.cu",
+    "directional_index.cu"))
 HEADERS = tuple(os.path.join(_CSRC, name) for name in (
     "wrap_dp_rows.cuh", "wrap_dp_warp.cuh"))
 BASELINE = tuple(os.path.join(_CSRC, name) for name in (
@@ -115,6 +116,9 @@ def library() -> ctypes.CDLL:
                 "mtr_wrap_dp_consensus": "ipppppppipppip",
                 "mtr_dbg_walk": "ppipi" + "p" * 11,
                 "mtr_dbg_walk_jobs_per_block": "",
+                "mtr_di_sliding_l1": "piiiipp",
+                "mtr_di_pearson_moments": "piiiipppppp",
+                "mtr_di_tile": "i",
             })
         return _LIB
 

@@ -504,13 +504,14 @@ def _run_chunk(flat, offs, chunk, v_pad, q, res, rows, host):
     period = np.zeros(n_jobs, np.int32)
     ovf = np.zeros(n_jobs, bool)
     dev_rows = []  # per launch: (first job, units, scores) on the device
-    for lo in range(0, n_jobs, JOBS_PER_LAUNCH):
-        hi = min(lo + JOBS_PER_LAUNCH, n_jobs)
-        f, p, u, s, o = dbg_walk(sv, adj, *(a[lo:hi] for a in args))
-        found[lo:hi] = f.cpu().numpy()
-        period[lo:hi] = p.cpu().numpy()
-        ovf[lo:hi] = o.cpu().numpy()
-        dev_rows.append((lo, u, s))
+    with TIMERS.section("walk_kernel"):  # launches and their pulls
+        for lo in range(0, n_jobs, JOBS_PER_LAUNCH):
+            hi = min(lo + JOBS_PER_LAUNCH, n_jobs)
+            f, p, u, s, o = dbg_walk(sv, adj, *(a[lo:hi] for a in args))
+            found[lo:hi] = f.cpu().numpy()
+            period[lo:hi] = p.cpu().numpy()
+            ovf[lo:hi] = o.cpu().numpy()
+            dev_rows.append((lo, u, s))
 
     # per (row, direction) group: the first found node wins; an overflow
     # at or before the winner (or anywhere, without one) could have
@@ -618,6 +619,8 @@ def dbg_walk_device_batch(org_arrays, len_table, read_idx, qss, qes, ks,
     h = np.sort(np.concatenate(host))  # batch order keeps the k runs
     if len(h):
         TIMERS.count("walk_fallback_queries", len(h))
-        _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res, rows)
+        with TIMERS.section("walk_host_route"):
+            _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res,
+                        rows)
     res["units"], res["scores"] = rows.stacked()
     return res

@@ -61,6 +61,8 @@ class Timers:
         extras = [
             ("di_device", "DI stencil"),
             ("walks", "DBG walks (native)"),
+            ("walk_kernel", "device walk launches + pull"),
+            ("walk_host_route", "device walks' host route"),
             ("dp_fill", "wrap-DP host engine"),
             ("dp_dispatch", "wrap-DP device dispatch"),
             ("dp_wait", "wrap-DP device wait + pull"),

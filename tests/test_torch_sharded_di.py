@@ -123,3 +123,20 @@ def test_pipeline_uses_sharded_di_and_matches_host(monkeypatch, tmp_path):
         assert bool(calls) == (cfg_i is cfg and n == 2)
         if cfg_i is cfg:
             assert out.getvalue() == host_small.getvalue()
+
+
+@pytest.mark.parametrize("n_slots,w,n_out", [(3, 700, 9001), (5, 17, 4099),
+                                             (8, 2, 7)])
+def test_sliding_l1_sharded_reads_exactly_the_pass(n_slots, w, n_out):
+    """Blocks of n_out / slots positions (parts differ by at most one),
+    each from its codes plus the 2w - 1 to its right, over a buffer that
+    ends at the pass's last code (alphabet 1,024, k 5): equal to the
+    oracle, and no kernel launched on CPU slots."""
+    vals = np.random.default_rng(w).integers(0, 1024, n_out + 2 * w - 1)
+    vals = vals.astype(np.int32)
+    before = dict(di_ops.KERNEL_LAUNCHES)
+    got = di_ops.sliding_l1_sharded(vals, w, n_out, cpu_mesh(n_slots), 5)
+    assert got.dtype == np.int64 and got.shape == (n_out,)
+    np.testing.assert_array_equal(got, sliding_l1(vals, w, n_out,
+                                                  use_native=False))
+    assert di_ops.KERNEL_LAUNCHES == before
