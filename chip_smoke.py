@@ -28,14 +28,17 @@ Phases, in order; any failure exits non-zero before the result line:
      with kernel launches and device-leg cells counted; then the in-repo
      100x10 golden;
   2d. the directional-index kernels (csrc/directional_index.cu: the
-     Manhattan sliding L1 and the Pearson moments) against their plain
-     versions on the card, with zero tolerance: every (k, w) of the DI
-     sweep, n_out below, at and past a tile, w above a tile, alphabets 4,
-     64 and 1,024 with runs of equal codes, a stale tail of codes >= 4^k
-     (Pearson skips them), lengths just past the old position buckets
-     16,384 / 131,072 / 1,114,112, and every pass of one 800 kbp read
-     (bench_800k); it runs after phase 3, which makes the temporary
-     directory;
+     Manhattan sliding L1 and the Pearson moments, one launch a group of
+     passes) against their plain versions on the card, with zero
+     tolerance: group launches of every w of each k of the DI sweep, n_out
+     below, at and past a tile, w above a tile, the group's fill term at a
+     multiple of 32, alphabets 4, 64 and 1,024 with runs of equal codes,
+     stale tails that some passes of a group reach (Pearson skips codes >=
+     4^k), windows past 32,767 (int32 Manhattan bins), lengths just past
+     the old position buckets 16,384 / 131,072 / 1,114,112, and the 40
+     passes of one 800 kbp read (bench_800k), a launch a k as the device
+     backend runs them; it runs after phase 3,
+     which makes the temporary directory;
   2c. the DBG walk kernel against stage_b_plain on the card, with zero
      tolerance, on fuzzed jobs (periodic reads with units 2-120, k 2-15
      with ranges at the read's end, homopolymer / 2-mer tie storms, walks
@@ -51,15 +54,22 @@ Phases, in order; any failure exits non-zero before the result line:
      (mtr_tpu's default: DBG walks on the card) on the bench set and the
      100x10 golden, byte-identical, with the launches of all three
      kernels, stage-A passes, speculative jobs and host-route queries
-     counted, every Manhattan DI pass one launch of the DI kernel and no
-     plain DI call on the card, and the walk thread's seconds split into
+     counted, the 400 Manhattan DI passes in 60 launches of the DI kernel
+     (one a read and k) and no plain DI call on the card, and the walk
+     thread's seconds split into
      stage A and job building, kernel launches and pulls, host route and
      the rest; then `python -m mtr_tpu_torch.cli --backend device` in a
      subprocess, same stdout;
   3e. the device path whole with -p's Pearson DI
      (MTRConfig(backend="device", manhattan_distance=False)) on the bench
-     set, byte-identical to tests/golden/bench_200x200_pcc.out, every
-     Pearson pass one launch of the DI kernel;
+     set, byte-identical to tests/golden/bench_200x200_pcc.out, the 400
+     Pearson passes in 60 launches of the DI kernel;
+  3f. the device DI of the bench set's reads alone on one thread, as
+     run_file calls it (a make_di_compute_k plug-in a kind, a call a read
+     and k), Manhattan and Pearson: seconds in all, split into the
+     groups' round trips (pinned upload, launch, copy back, int64
+     widening), the host float64 finish and the rest, beside the DI
+     seconds that 3c and 3e spent on the reader thread;
   3d. the hybrid with MTR_TPU_MF_FILTER=1 (the walk pre-filter on the
      card), byte-identical, with the queries it filtered out;
   4. counts kernel times with CUDA events against its first design
@@ -81,11 +91,13 @@ Phases, in order; any failure exits non-zero before the result line:
      WALK_PLAIN_BUDGET_S, the kernel against stage_b_plain on the launch
      (zero tolerance) and the lookups and steps stage_b_plain counts
      there, for the bound;
-  4e. every DI pass of phases 3c (Manhattan) and 3e (Pearson), recorded by
-     Spies, replayed: the kernel against its plain version (zero
-     tolerance) and its CUDA-event time, summed over the run; at the
-     heaviest pass of each, the kernel alone, the pass with its copies,
-     the plain version, the host pass and the bound;
+  4e. every DI launch of phases 3c (Manhattan) and 3e (Pearson), recorded
+     by Spies, replayed: the kernel against its plain version (zero
+     tolerance), and with CUDA events against the first design
+     (csrc/directional_index_v1.cu, a launch a pass, summed over the
+     group's passes) in turns, summed over the run; at the heaviest launch
+     of each, the two in turns, the group with its copies, the plain
+     version, the host passes and the bound;
   5a. the CLI's other modes, each `python -m mtr_tpu_torch.cli` in a new
      process against a golden that mtr_tpu's host backend wrote
      (scripts/write_port_goldens.py): -p under --backend hybrid and under
@@ -108,7 +120,8 @@ Phases, in order; any failure exits non-zero before the result line:
   5e. accuracy: the pinned exact-match and ratio counts of
      tests/test_accuracy.py through the hybrid.
 
-The replayed launches' rows are written to build/chip_smoke/*_launches.json.
+The replayed launches' rows are written to build/chip_smoke/*_launches.json
+(consensus, walk, di_l1, di_pcc).
 Each path of phase 3 sets the kernels' launch counts to 0 before it runs
 and fails if a kernel of that path was not launched.  A path whose output
 differs from its golden prints the first differing line.
@@ -168,6 +181,10 @@ DI_REPLACES = {
 # the (k, largest w) of fill_directional_index_with_end's sweep (w = 5, 10,
 # 20, ... while w < L / 2)
 DI_SWEEP = ((1, 20), (3, 80), (5, 10240))
+# a bench read (~120 kb) runs every w of the sweep: 20 passes, one launch
+# a k on one device
+BENCH_DI_GROUPS = BENCH_READS * len(DI_SWEEP)
+BENCH_DI_PASSES = BENCH_READS * 20
 # int32 operations a position the sliding update needs, for the bound:
 # Manhattan four bin updates of four operations (read, add, and |.| before
 # and after into D), Pearson six count updates of six (the count, the
@@ -698,38 +715,44 @@ def walk_vs_references(fasta):
     return worst, tot["bad"]
 
 
-def di_diff(codes, n_out, w, n_sym, kind):
-    """A DI kernel ("l1" Manhattan, "pcc" Pearson) against its plain
-    version on one pass of codes (a CUDA tensor): the largest absolute
-    difference."""
-    import torch
-
+def di_group_out(kind, codes, n_outs, ws, n_sym):
+    """One counted launch of a DI kernel ("l1" Manhattan, "pcc" Pearson)
+    on a group of passes over codes (a CUDA tensor): each pass's int32
+    output."""
     from mtr_tpu_torch.ops import directional_index as di
 
-    k = n_sym.bit_length() // 2  # n_sym = 4^k
     if kind == "l1":
-        got = di.sliding_l1_kernel(codes, n_out, w, n_sym)
-        want = di._sliding_l1_device(codes[: n_out + 2 * w - 1], k, w)
-    else:
-        got = di.pearson_moments_kernel(codes, n_out, w, n_sym)
-        want = torch.stack(di._pearson_moments_device(
-            codes[: n_out + 3 * w - 1], k, w))
-    check(tuple(got.shape) == tuple(want.shape), f"DI kernel {kind}: shape "
-          f"{tuple(got.shape)} against the plain {tuple(want.shape)}")
-    return int((got.long() - want).abs().max()) if n_out else 0
+        return di.split_group(di.sliding_l1_kernel(codes, n_outs, ws, n_sym),
+                              n_outs, 1)
+    return di.split_group(di.pearson_moments_kernel(codes, n_outs, ws, n_sym),
+                          n_outs, 5)
+
+
+def di_diff(codes, n_outs, ws, n_sym, kind):
+    """A DI kernel's group launch against its plain version on each pass:
+    the largest absolute difference."""
+    from mtr_tpu_torch.ops import directional_index as di
+
+    got = di_group_out(kind, codes, n_outs, ws, n_sym)
+    want = di.plain_group(codes, n_outs, ws, n_sym, kind == "pcc")
+    worst = 0
+    for g, x in zip(got, want):
+        check(tuple(g.shape) == tuple(x.shape), f"DI kernel {kind}: shape "
+              f"{tuple(g.shape)} against the plain {tuple(x.shape)}")
+        worst = max(worst, int((g.long() - x).abs().max()))
+    return worst
 
 
 def di_vs_plain(tmp, edges=(16384, 131072, 1048576 + 65536),
                 long_set="bench_800k"):
-    """Phase 2d: passes of n_pos just past each of `edges` (the old
-    position buckets) and every pass of the first read of `long_set`.
-    Returns the largest absolute difference (must be 0) and the passes
-    checked by kind."""
+    """Phase 2d: group launches of mixed w against the plain versions, and
+    every pass of the first read of `long_set` (a group launch a k, as the
+    device backend runs them).  Returns the largest absolute difference
+    (must be 0) and the passes checked by kind."""
     import torch
 
     from mtr_tpu_torch.config import MTRConfig
     from mtr_tpu_torch.io.fasta import iter_fasta
-    from mtr_tpu_torch.ops import _build
     from mtr_tpu_torch.ops import directional_index as di
     from mtr_tpu_torch.oracle.arena import Arena
     from mtr_tpu_torch.oracle.directional_index import (
@@ -738,87 +761,108 @@ def di_vs_plain(tmp, edges=(16384, 131072, 1048576 + 65536),
     from mtr_tpu_torch.testutil.golden_sets import write_set
 
     rng = np.random.default_rng(20243)
-    worst, n, spans = 0, {"l1": 0, "pcc": 0}, set()
+    worst, n, launches, tiles = 0, {"l1": 0, "pcc": 0}, 0, set()
     t0 = time.perf_counter()
 
-    def run(codes, n_out, w, n_sym, kind, what):
-        nonlocal worst
-        span = 2 * w if kind == "l1" else 3 * w
-        t = torch.from_numpy(np.ascontiguousarray(
-            codes[: n_out + span - 1], np.int32)).cuda()
-        err = di_diff(t, n_out, w, n_sym, kind)
+    def run(codes, n_outs, ws, n_sym, kind, what):
+        nonlocal worst, launches
+        n_win = 2 if kind == "l1" else 3
+        size = max(m + n_win * w - 1 for m, w in zip(n_outs, ws))
+        t = torch.from_numpy(np.ascontiguousarray(codes[:size],
+                                                  np.int32)).cuda()
+        err = di_diff(t, n_outs, ws, n_sym, kind)
         worst = max(worst, err)
-        n[kind] += 1
-        spans.add(span)
+        n[kind] += len(ws)
+        launches += 1
+        table = di.plan_group(t.device, n_outs, ws, n_sym, kind == "pcc")
+        tiles.update((int(r[3]), int(r[4])) for r in table)
         check(err == 0, f"DI kernel {kind} disagrees with its plain version "
-              f"({what}: n_out {n_out}, w {w}, n_sym {n_sym}; max abs err "
+              f"({what}: n_out {n_outs}, w {ws}, n_sym {n_sym}; max abs err "
               f"{err})")
 
-    def both(n_out, w, k, alphabet, what, runs=False):
-        """A Manhattan pass over codes below `alphabet` (n_sym the 4^k
-        above them) and a Pearson pass of k whose last 2w codes reach
-        `alphabet` (codes >= 4^k there are skipped)."""
-        for kind, span in (("l1", 2 * w), ("pcc", 3 * w)):
-            size = n_out + span - 1
+    def group(n_outs, ws, k, alphabet, what, runs=False):
+        """A Manhattan and a Pearson group over the same codes: below 4^k,
+        then a stale tail of codes below `alphabet` that the longer passes
+        reach and the shorter ones may not (Manhattan sizes n_sym over the
+        whole group; Pearson skips codes >= 4^k); or runs of equal codes."""
+        for kind, n_win in (("l1", 2), ("pcc", 3)):
+            size = max(m + n_win * w - 1 for m, w in zip(n_outs, ws))
             if runs:  # runs of equal codes: steps that move equal codes
                 codes = np.repeat(rng.integers(0, alphabet, size),
                                   rng.integers(1, 40, size))[:size]
             else:
                 codes = rng.integers(0, 4**k, size)
-                codes[size - 2 * w :] = rng.integers(0, alphabet, 2 * w)
+                cut = int(rng.integers(size // 2, size))
+                codes[cut:] = rng.integers(0, alphabet, size - cut)
             n_sym = (4 ** di._k_for(codes, size) if kind == "l1" else 4**k)
-            run(codes, n_out, w, n_sym, kind, what)
+            run(codes, n_outs, ws, n_sym, kind, what)
 
-    for k, max_w in DI_SWEEP:  # every (k, w) of the sweep
-        w = 5
-        while w <= max_w:
-            both(int(rng.integers(1, 30000)), w, k, 1024, "sweep")
-            w *= 2
-    for w in (5, 200, 2000, 10240):  # n_out around a tile; w above one
-        for span in (2 * w, 3 * w):
-            tile = di.di_tile(span)
-            for n_out in (1, tile - 1, tile, tile + 1, 4 * tile + 1):
-                both(n_out, w, 3, 64, f"tile {tile}")
+    for k, max_w in DI_SWEEP:  # every w of each k in one launch
+        ws = [5 * 2**i for i in range(20) if 5 * 2**i <= max_w]
+        group([int(x) for x in rng.integers(1, 30000, len(ws))], ws, k, 1024,
+              "sweep")
+    dev = torch.device("cuda")
+    for w in (5, 200, 2000, 10240):  # n_out around a tile and a warp
+        for pearson in (False, True):
+            _, _, _, tile, sl = di.plan_group(dev, [1], [w], 64,
+                                              pearson)[0].tolist()
+            group([1, tile - 1 or 1, tile, tile + 1, sl * tile,
+                   sl * tile + 1, 4 * sl * tile + 1], [w] * 7, 3, 64,
+                  f"tile {tile}, {sl} sliders")
+    ws = [5, 640, 10240]
+    sl = di.di_sliders([2 * w for w in ws], 1024, 2)
+    resident = di.resident_warps(dev, False, 1024, ws, max(sl))
+    for extra in (-1, 0, 1):  # the group's fill term at a multiple of 32
+        per = (32 * resident + extra) // 3
+        group([s * per for s in sl[:2]] + [sl[2] * (32 * resident + extra
+                                                   - 2 * per)],
+              ws, 5, 1024, "fill edge")
     for alphabet, k in ((4, 1), (64, 3), (1024, 5)):
-        for w in (5, 80, 2560):
-            both(int(rng.integers(1000, 20000)), w, k, alphabet,
-                 f"alphabet {alphabet}, runs", runs=True)
+        group([int(x) for x in rng.integers(1000, 20000, 3)], [5, 80, 2560],
+              k, alphabet, f"alphabet {alphabet}, runs", runs=True)
+    # windows past 32,767: int32 Manhattan bins (Pearson's 16-bit counts
+    # hold w up to the bound's 46,340)
+    group([100, 33], [32768, 40000], 1, 4, "wide bins")
     for n_pos in (e + 1 for e in edges):
-        for w in (5, 640, 5000):
-            for kind, span in (("l1", 2 * w), ("pcc", 3 * w)):
-                run(rng.integers(0, 1024, n_pos), n_pos - span + 1, w, 1024,
-                    kind, f"n_pos {n_pos}")
-    lib = _build.library()
-    for span in sorted(spans):
-        check(lib.mtr_di_tile(span) == di.di_tile(span), f"the kernel's tile "
-              f"{lib.mtr_di_tile(span)} differs from di_tile({span})")
-    n_fuzz = dict(n)
+        for kind, n_win in (("l1", 2), ("pcc", 3)):
+            ws = [5, 640, 5000]
+            run(rng.integers(0, 1024, n_pos),
+                [n_pos - n_win * w + 1 for w in ws], ws, 1024, kind,
+                f"n_pos {n_pos}")
+    n_fuzz, l_fuzz = dict(n), launches
 
-    # every pass of one 800 kbp read, from the arena as the pipeline fills it
+    # every pass of one 800 kbp read, from the arena as the pipeline fills
+    # it: a group launch a k and kind
     cfg = MTRConfig()
     read = next(iter_fasta(write_set(long_set, tmp), cfg.max_input_length))
     arena = Arena(cfg.max_input_length)
     arena.load_read(read.codes)
 
-    def compare(buf, di_len, w, k, rsl):
-        n_i = di_len - w - rsl - k + 1
-        if n_i > 0:
-            n_pos = n_i + 3 * w - 1
-            run(buf, n_i + w, w, 4 ** di._k_for(buf, n_pos), "l1", "800k")
-            run(buf, n_i, w, 4**k, "pcc", "800k")
-        return np.full(di_len, -1.0)
+    def compare(buf, di_len, ws, k, rsl):
+        passes = [(w, di_len - w - rsl - k + 1) for w in ws]
+        passes = [(w, n_i) for w, n_i in passes if n_i > 0]
+        pws = [w for w, _ in passes]
+        n_pos = max(n_i + 3 * w - 1 for w, n_i in passes)
+        run(buf, [n_i + w for w, n_i in passes], pws,
+            4 ** di._k_for(buf, n_pos), "l1", "800k")
+        run(buf, [n_i for _, n_i in passes], pws, 4**k, "pcc", "800k")
+        return [np.full(di_len, -1.0) for _ in ws]
 
     fill_directional_index_with_end(
         arena, read.length, 100 if read.length < 1000 else read.length // 10,
-        di_compute=compare)
+        di_compute_k=compare)
     torch.cuda.synchronize()
-    info(f"DI kernels vs plain on the card: {n_fuzz['l1']} Manhattan and "
-         f"{n_fuzz['pcc']} Pearson fuzz passes (every (k, w) of the sweep, "
-         f"n_out around tiles of {sorted({di.di_tile(x) for x in spans})}, "
-         f"alphabets 4 / 64 / 1,024 with runs, stale tails, n_pos past "
-         f"{edges}), {n['l1'] - n_fuzz['l1']} + "
-         f"{n['pcc'] - n_fuzz['pcc']} passes of the {read.length} bp read; "
-         f"max abs err {worst} ({time.perf_counter() - t0:.1f} s)")
+    info(f"DI kernels vs plain on the card: {l_fuzz} fuzz group launches of "
+         f"{n_fuzz['l1']} Manhattan and {n_fuzz['pcc']} Pearson passes "
+         f"(every w of each k of the sweep in one launch, n_out around "
+         f"(tile, sliders) {sorted(tiles)}, the fill term at a multiple of "
+         f"32, alphabets "
+         f"4 / 64 / 1,024 with runs, stale tails that some passes of a group "
+         f"reach, w past 32,767, n_pos past {edges}), {launches - l_fuzz} "
+         f"launches of "
+         f"{n['l1'] - n_fuzz['l1']} + {n['pcc'] - n_fuzz['pcc']} passes of "
+         f"the {read.length} bp read; max abs err {worst} "
+         f"({time.perf_counter() - t0:.1f} s)")
     return worst, n
 
 
@@ -962,8 +1006,10 @@ def device_path(fasta, golden, hybrid_rate, host_rate):
         check(launches[name] > 0, f"the device path ran no {name} launch")
     check(launches["dbg_walk"] == 0, "use_device_walks=False walked on the "
           "device")
-    check(launches["di_l1_kernel"] == launches["di"], f"{launches['di']} "
-          f"DI passes but {launches['di_l1_kernel']} DI kernel launches")
+    check((launches["di_l1_kernel"], launches["di"]) == (
+        BENCH_DI_GROUPS, BENCH_DI_PASSES), f"{launches['di']} DI passes in "
+          f"{launches['di_l1_kernel']} DI kernel launches, not "
+          f"{BENCH_DI_PASSES} in {BENCH_DI_GROUPS} (one a read and k)")
     return launches, dt
 
 
@@ -1014,6 +1060,7 @@ def device_walk_path(fasta, golden):
         dt = time.perf_counter() - t0
     launches = read_counts()
     spent, counted = timer_delta(before_t), counter_delta(before_c)
+    launches["di_seconds"] = spent.get("di_device", 0.0)
     n_q = counted.get("speculative_queries", 0)
     n_host = counted.get("walk_fallback_queries", 0)
     info(f"bench set, port device with device walks: {dt:.3f} s, "
@@ -1046,9 +1093,12 @@ def device_walk_path(fasta, golden):
     same_as_golden(out.getvalue(), golden, "port device (device walks)")
     for name in ("counts", "consensus", "dbg_walk", "stage_a", "di"):
         check(launches[name] > 0, f"the device path ran no {name} launch")
-    check(launches["di_l1_kernel"] == launches["di"] == len(spies.di_l1)
+    check(launches["di_l1_kernel"] == len(spies.di_l1) == BENCH_DI_GROUPS
+          and launches["di"] == BENCH_DI_PASSES == sum(
+              len(ws) for _, _, ws, _ in spies.di_l1)
           and launches["di_pcc_kernel"] == 0 and spies.di_plain_on_card == 0,
-          "the device path's DI did not run every pass through the kernel")
+          "the device path's DI did not run every pass through the kernel, "
+          "one launch a read and k")
 
     golden_100 = os.path.join(HERE, "tests", "golden", "multi20_100x10")
     t0 = time.perf_counter()
@@ -1075,7 +1125,7 @@ def device_walk_path(fasta, golden):
 def pearson_device_path(fasta):
     """Phase 3e: run_file under backend "device" with -p's Pearson DI on
     the bench set against bench_200x200_pcc.out.  Returns the launch
-    counts and the recorded Pearson passes."""
+    counts and the recorded Pearson group launches."""
     import io
 
     from mtr_tpu_torch.config import MTRConfig
@@ -1093,6 +1143,7 @@ def pearson_device_path(fasta):
         dt = time.perf_counter() - t0
     launches = read_counts()
     spent = timer_delta(before)
+    launches["di_seconds"] = spent.get("di_device", 0.0)
     same_as_golden(out.getvalue(), read_golden("bench_200x200_pcc"),
                    "port device -p")
     info(f"bench set, port device -p (Pearson DI, device walks): identical "
@@ -1101,10 +1152,13 @@ def pearson_device_path(fasta):
          f"kernel launches for {launches['di']} passes, "
          f"{spies.di_plain_on_card} plain DI calls on the card "
          f"({card_line()})")
-    check(launches["di_pcc_kernel"] == launches["di"] == len(spies.di_pcc)
-          > 0 and launches["di_l1_kernel"] == 0
+    check(launches["di_pcc_kernel"] == len(spies.di_pcc) == BENCH_DI_GROUPS
+          and launches["di"] == BENCH_DI_PASSES == sum(
+              len(ws) for _, _, ws, _ in spies.di_pcc)
+          and launches["di_l1_kernel"] == 0
           and spies.di_plain_on_card == 0,
-          "the -p device path's DI did not run every pass through the kernel")
+          "the -p device path's DI did not run every pass through the "
+          "kernel, one launch a read and k")
     return launches, spies.di_pcc
 
 
@@ -1376,9 +1430,11 @@ def accuracy_path(tmp, backend="hybrid"):
 
 class Spies:
     """Records the inputs of every walk-, consensus- and DI-kernel call of
-    a run, and counts the plain DI versions' calls on the card.  Their
-    callers (ops/dbg_device._run_chunk, TorchDPBatcher._dispatch,
-    ops/directional_index._l1 / _moments) look the ops up at call time, so
+    a run (a DI call is a group launch: codes, n_outs, ws, n_sym), and
+    counts the plain DI versions' calls on the card.  Their callers
+    (ops/dbg_device._run_chunk, TorchDPBatcher._dispatch,
+    ops/directional_index._group / plain_group) look the ops up at call
+    time, so
     a stand-in that records its arguments and calls the real op sees every
     launch.  Holding the arguments keeps each launch's tables and codes
     alive on the card (a few GB a bench run)."""
@@ -1874,114 +1930,219 @@ def hybrid_profile(fasta, golden):
     return out
 
 
-def di_bound(kind, n_out, w):
-    """A DI pass's bound: DI_OPS int32 operations a position; bytes: the
-    codes read once, D (Pearson: five moments) written once as int32."""
-    span, n_res = (2 * w, 1) if kind == "l1" else (3 * w, 5)
-    return bound_ms(n_out * DI_OPS[kind],
-                    (n_out + span - 1) * 4 + n_res * n_out * 4)
+def di_bound(kind, n_outs, ws):
+    """A DI group launch's bound: DI_OPS int32 operations a position;
+    bytes: the group's codes read once, D (Pearson: five moments) written
+    once as int32."""
+    n_win, n_res = (2, 1) if kind == "l1" else (3, 5)
+    n_codes = max(n + n_win * w - 1 for n, w in zip(n_outs, ws))
+    return bound_ms(sum(n_outs) * DI_OPS[kind],
+                    n_codes * 4 + n_res * sum(n_outs) * 4)
 
 
-def bare_di(kind, codes, n_out, w, n_sym):
-    """A bare launcher of a DI kernel on one pass (its outputs allocated
-    once; no launch counted), for CUDA-event timing."""
+def bare_di_group(kind, codes, n_outs, ws, n_sym):
+    """A bare launcher of a DI kernel on a group of passes (the wrapper's
+    tiles and table, its output allocated once; no launch counted), for
+    CUDA-event timing.  Returns (run, flat output)."""
+    import ctypes
+
+    import torch
+
+    from mtr_tpu_torch.ops import _build
+    from mtr_tpu_torch.ops import directional_index as di
+
+    pearson = kind == "pcc"
+    rows = 5 if pearson else 1
+    table = di.plan_group(codes.device, n_outs, ws, n_sym, pearson)
+    out = torch.empty(rows * sum(n_outs), dtype=torch.int32,
+                      device=codes.device)
+    lib = _build.library()
+    fn = lib.mtr_di_pearson_moments if pearson else lib.mtr_di_sliding_l1
+    args = (codes.data_ptr(), codes.numel(), table.ctypes.data, len(ws),
+            n_sym, out.data_ptr(), out.numel(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    def run(_keep=(out, table)):
+        err = fn(*args)
+        check(err == 0, f"DI kernel {kind} launch failed: CUDA error {err}")
+
+    return run, out
+
+
+def bare_di_v1(kind, codes, n_outs, ws, n_sym):
+    """The first design (csrc/directional_index_v1.cu) on the same passes,
+    a launch a pass, as the device backend first ran them.  Returns (run,
+    each pass's output)."""
     import ctypes
 
     import torch
 
     from mtr_tpu_torch.ops import _build
 
-    lib = _build.library()
-    if kind == "l1":
-        out = torch.empty(n_out, dtype=torch.int32, device=codes.device)
-        fn, ptrs = lib.mtr_di_sliding_l1, [out.data_ptr()]
-    else:
-        out = torch.empty((5, n_out), dtype=torch.int32, device=codes.device)
-        fn, ptrs = lib.mtr_di_pearson_moments, [r.data_ptr() for r in out]
-    args = (codes.data_ptr(), codes.numel(), n_out, w, n_sym, *ptrs,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    base = _build.baseline_library()
+    fn = (base.mtr_di_sliding_l1_v1 if kind == "l1"
+          else base.mtr_di_pearson_moments_v1)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    outs, calls = [], []
+    for n, w in zip(n_outs, ws):
+        o = torch.empty((n,) if kind == "l1" else (5, n), dtype=torch.int32,
+                        device=codes.device)
+        outs.append(o)
+        calls.append((n, w, [o.data_ptr()] if kind == "l1"
+                      else [r.data_ptr() for r in o]))
 
-    def run(_keep=out):
-        err = fn(*args)
-        check(err == 0, f"DI kernel {kind} launch failed: CUDA error {err}")
+    def run(_keep=outs):
+        for n, w, ptrs in calls:
+            err = fn(codes.data_ptr(), codes.numel(), n, w, n_sym, *ptrs,
+                     stream)
+            check(err == 0, f"first-design DI kernel {kind} failed: {err}")
 
-    return run
+    return run, outs
 
 
-def replay_di(passes, kind):
-    """Phase 4e: every recorded DI pass of a device run, the kernel
-    against its plain version (zero tolerance) and its CUDA-event ms a
-    launch.  Returns one dict a pass."""
+def replay_di(launches, kind):
+    """Phase 4e: every recorded DI group launch of a device run, the
+    kernel against its plain version (zero tolerance) and, in turns with
+    CUDA events, the kernel ("now") against the first design's launches of
+    the same passes ("before").  Returns one dict a launch."""
     rows = []
-    for n, (codes, n_out, w, n_sym) in enumerate(passes):
-        err = di_diff(codes, n_out, w, n_sym, kind)
-        bms, by = di_bound(kind, n_out, w)
-        rows.append({"launch": n, "n_out": n_out, "w": w, "n_sym": n_sym,
-                     "max_abs_err": err,
-                     "ms": event_ms(bare_di(kind, codes, n_out, w, n_sym), 3),
-                     "bound_ms": bms, "bound_by": by})
+    for n, (codes, n_outs, ws, n_sym) in enumerate(launches):
+        err = di_diff(codes, n_outs, ws, n_sym, kind)
+        ms = in_turns({"before": bare_di_v1(kind, codes, n_outs, ws,
+                                            n_sym)[0],
+                       "now": bare_di_group(kind, codes, n_outs, ws,
+                                            n_sym)[0]}, 3)
+        bms, by = di_bound(kind, n_outs, ws)
+        rows.append({"launch": n, "passes": len(ws), "positions": sum(n_outs),
+                     "w_max": max(ws), "n_sym": n_sym, "max_abs_err": err,
+                     "ms": ms, "bound_ms": bms, "bound_by": by})
     return rows
 
 
-def time_di(rows, passes, kind):
-    """Phase 4e at the heaviest replayed pass: the kernel alone (CUDA
-    events), the pass with its copies (numpy codes to the card and the
-    result back, host clock), the plain version on the card, the native
-    host pass (Manhattan only: the native engine's Pearson pass runs
-    inside its whole-read fill_di) and the bound."""
+def di_host_split(fasta, in_run):
+    """Phase 3f: the device DI of the bench set's reads alone on this
+    thread, with nothing else on the card or the host: each read's arena
+    filled as run_file fills it, its passes through a make_di_compute_k
+    plug-in.  Seconds in all a kind, split by timing stand-ins of
+    _Staging.run (the groups' round trips: pinned upload, launch, copy
+    back, int64 widening) and of the float64 finish (looked up at call
+    time by di_group_device), the rest being the checks, the alphabet and
+    the placement.  in_run: the DI seconds of 3c and 3e by kind."""
+    import torch
+
+    from mtr_tpu_torch.config import MTRConfig
+    from mtr_tpu_torch.io.fasta import iter_fasta
+    from mtr_tpu_torch.ops import directional_index as di
+    from mtr_tpu_torch.oracle.arena import Arena
+    from mtr_tpu_torch.oracle.directional_index import (
+        fill_directional_index_with_end,
+    )
+
+    cfg = MTRConfig(backend="device")
+    reads = [r for r in iter_fasta(fasta, cfg.max_input_length)
+             if r.length >= cfg.device_di_threshold]
+    real = (di._Staging.run, di._manhattan_finish, di._pearson_finish)
+    spent = {}
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            res = fn(*args)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return res
+        return call
+
+    di._Staging.run = timed("round trips", real[0])
+    di._manhattan_finish = timed("finish", real[1])
+    di._pearson_finish = timed("finish", real[2])
+    res = {}
+    arena = Arena(cfg.max_input_length)
+    for kind, manhattan in (("l1", True), ("pcc", False)):
+        spent.clear()
+        plug = timed("all", di.make_di_compute_k(torch.device("cuda"),
+                                                 manhattan))
+        for read in reads:
+            arena.load_read(read.codes)
+            L = read.length
+            fill_directional_index_with_end(
+                arena, L, 100 if L < 1000 else L // 10, manhattan=manhattan,
+                di_compute_k=plug)
+        split = {k: spent.get(k, 0.0) for k in ("all", "round trips",
+                                                  "finish")}
+        res[kind] = dict(split, rest=split["all"] - split["round trips"]
+                         - split["finish"], in_run=in_run[kind])
+    (di._Staging.run, di._manhattan_finish, di._pearson_finish) = real
+    for kind, r in res.items():
+        name = "Manhattan" if kind == "l1" else "Pearson"
+        info(f"bench set, device DI alone ({name}, {len(reads)} reads, one "
+             f"thread; {card_line()}): "
+             f"{r['all']:.3f} s = round trips {r['round trips']:.3f} + "
+             f"finish {r['finish']:.3f} + the rest {r['rest']:.3f}; in the "
+             f"device run on the reader thread {r['in_run']:.3f} s")
+    return res
+
+
+def time_di(rows, launches, kind):
+    """Phase 4e at the heaviest replayed launch: the kernel and the first
+    design in turns (CUDA events), the group with its copies (numpy codes
+    through pinned memory to the card and the outputs back; host clock), the plain version on the card, the native host
+    passes (Manhattan only: the native engine's Pearson pass runs inside
+    its whole-read fill_di) and the bound; the run's sums."""
     import torch
 
     from mtr_tpu_torch import native
     from mtr_tpu_torch.ops import directional_index as di
 
-    heavy = max(rows, key=lambda r: r["ms"])
-    codes, n_out, w, n_sym = passes[heavy["launch"]]
-    k = n_sym.bit_length() // 2
-    ms = min(event_ms(bare_di(kind, codes, n_out, w, n_sym), 20)
-             for _ in range(2))
+    name = "Manhattan sliding L1" if kind == "l1" else "Pearson moments"
+    sums, _ = report_replay(f"DI {name} kernel", rows,
+                            f"di_{kind}_launches.json")
+    heavy = max(rows, key=lambda r: r["ms"]["now"])
+    codes, n_outs, ws, n_sym = launches[heavy["launch"]]
+    ms = in_turns({"before": bare_di_v1(kind, codes, n_outs, ws, n_sym)[0],
+                   "now": bare_di_group(kind, codes, n_outs, ws, n_sym)[0]},
+                  20)
     vals = codes.cpu().numpy()
-    kernel = di.sliding_l1_kernel if kind == "l1" else \
-        di.pearson_moments_kernel
+    staging = di._Staging()
 
     def with_copies():
-        return kernel(torch.from_numpy(vals).cuda(), n_out, w, n_sym).cpu()
-
-    def plain():
-        if kind == "l1":
-            return di._sliding_l1_device(codes, k, w)
-        return torch.stack(di._pearson_moments_device(codes, k, w))
+        staging.run(vals, vals.size, n_outs, ws, n_sym, kind == "pcc",
+                    codes.device)
 
     with_copies()
     t0 = time.perf_counter()
     for _ in range(10):
         with_copies()
     copies_ms = (time.perf_counter() - t0) / 10 * 1e3
-    plain_ms = event_ms(plain, 3)
+    plain_ms = event_ms(lambda: di.plain_group(codes, n_outs, ws, n_sym,
+                                               kind == "pcc"), 3)
     host_ms = None
     if kind == "l1":
-        native.sliding_l1(vals, w, n_out)
         t0 = time.perf_counter()
-        native.sliding_l1(vals, w, n_out)
+        for n, w in zip(n_outs, ws):
+            native.sliding_l1(vals, w, n)
         host_ms = (time.perf_counter() - t0) * 1e3
-    bms, by = di_bound(kind, n_out, w)
-    run_ms = sum(r["ms"] for r in rows)
-    res = {"ms": ms, "copies_ms": copies_ms, "plain_ms": plain_ms,
-           "host_ms": host_ms, "bound_ms": bms, "bound_by": by,
-           "run_ms": run_ms, "run_bound_ms": sum(r["bound_ms"] for r in rows),
-           "passes": len(rows),
+    bms, by = di_bound(kind, n_outs, ws)
+    k = n_sym.bit_length() // 2
+    res = {"ms": ms["now"], "ms_before": ms["before"], "copies_ms": copies_ms,
+           "plain_ms": plain_ms, "host_ms": host_ms, "bound_ms": bms,
+           "bound_by": by, "run_ms": sums["now"],
+           "run_ms_before": sums["before"],
+           "run_bound_ms": sum(r["bound_ms"] for r in rows),
+           "launches": len(rows), "passes": sum(r["passes"] for r in rows),
            "max_abs_err": max(r["max_abs_err"] for r in rows),
-           "shape": f"k {k}, w {w}, {n_out} positions"}
-    name = "Manhattan sliding L1" if kind == "l1" else "Pearson moments"
+           "shape": f"n_sym {n_sym} (k {k}), {len(ws)} passes, w "
+                    f"{min(ws)}-{max(ws)}, {sum(n_outs)} positions"}
     host = "no native pass alone" if host_ms is None else \
-        f"native sliding L1 {host_ms:.3f} ms"
-    info(f"DI {name} kernel, the device run's {len(rows)} passes replayed "
-         f"({card_line()}): run sum {run_ms:.3f} ms, bound "
-         f"{res['run_bound_ms']:.4f} ms; max abs err against the plain "
-         f"version {res['max_abs_err']}")
-    info(f"  heaviest pass ({res['shape']}): kernel {ms:.4f} ms, with its "
-         f"copies {copies_ms:.3f} ms (host clock), plain version "
-         f"{plain_ms:.3f} ms, {host}; bound "
-         f"{bms:.5f} ms ({by}), share {bms / ms:.4f}")
+        f"native sliding L1 {host_ms:.3f} ms over its passes"
+    info(f"DI {name} kernel, the device run's {res['launches']} launches of "
+         f"{res['passes']} passes ({card_line()}): run bound "
+         f"{res['run_bound_ms']:.4f} ms, share "
+         f"{res['run_bound_ms'] / res['run_ms']:.4f}; "
+         f"max abs err against the plain version {res['max_abs_err']}")
+    info(f"  heaviest launch ({res['shape']}): kernel {ms['now']:.4f} ms, "
+         f"first design {ms['before']:.4f} ms; with its copies "
+         f"{copies_ms:.3f} ms (host clock), plain version {plain_ms:.3f} ms, "
+         f"{host}; bound {bms:.5f} ms ({by}), share {bms / ms['now']:.4f}")
     return res
 
 
@@ -2029,7 +2190,10 @@ def main() -> int:
             di_worst, _ = di_vs_plain(tmp)
             one_device = device_path(fasta, golden, hybrid_rate, host_rate)
             launches, spies = device_walk_path(fasta, golden)
-            pcc_launches, pcc_passes = pearson_device_path(fasta)
+            pcc_counts, pcc_launches = pearson_device_path(fasta)
+            di_alone = di_host_split(fasta, {
+                "l1": launches["di_seconds"],
+                "pcc": pcc_counts["di_seconds"]})
             prefilter_path(fasta, golden)
             t_new = time.perf_counter()
             cli_modes(fasta, tmp)
@@ -2042,7 +2206,7 @@ def main() -> int:
             profiled = hybrid_profile(fasta, golden)
         cons_rows = replay_cons(spies.cons)
         walk_rows = replay_walks(spies.walks, WALK_PLAIN_BUDGET_S)
-        l1_passes = spies.di_l1
+        l1_launches = spies.di_l1
         del spies
         cons_sums, (cons_heavy, *_) = report_replay(
             "consensus kernel", cons_rows, "consensus_launches.json")
@@ -2062,8 +2226,8 @@ def main() -> int:
              f"steps, 0 mismatching): {walk_bound_run:.4f} ms; consensus "
              f"bound over the run: "
              f"{sum(r['bound_ms'] for r in cons_rows):.4f} ms")
-        l1 = time_di(replay_di(l1_passes, "l1"), l1_passes, "l1")
-        pcc = time_di(replay_di(pcc_passes, "pcc"), pcc_passes, "pcc")
+        l1 = time_di(replay_di(l1_launches, "l1"), l1_launches, "l1")
+        pcc = time_di(replay_di(pcc_launches, "pcc"), pcc_launches, "pcc")
         check(max(di_worst, l1["max_abs_err"], pcc["max_abs_err"]) == 0,
               "a DI kernel disagrees with its plain version on the run's "
               "passes")
@@ -2151,15 +2315,21 @@ def main() -> int:
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": None,
+        "ms_before": r["ms_before"],
         "run_ms": r["run_ms"],
+        "run_ms_before": r["run_ms_before"],
         "run_bound_ms": r["run_bound_ms"],
+        "passes": passes,
+        "launches_replayed": r["launches"],
         "passes_replayed": r["passes"],
         "ms_with_copies": r["copies_ms"],
         "host_ms": r["host_ms"],
         "shape": r["shape"],
-    } for name, kind, count, r in (
-        ("di_sliding_l1", "l1", launches["di_l1_kernel"], l1),
-        ("di_pearson_moments", "pcc", pcc_launches["di_pcc_kernel"], pcc))],
+        "bench_di_alone_s": di_alone[kind],
+    } for name, kind, count, passes, r in (
+        ("di_sliding_l1", "l1", launches["di_l1_kernel"], launches["di"], l1),
+        ("di_pearson_moments", "pcc", pcc_counts["di_pcc_kernel"],
+         pcc_counts["di"], pcc))],
         "mesh": {"slots": list(MESH_SLOTS),
                  "di_sharded_passes": mesh_launches["di_sharded"]},
         "two_process_s": two_proc_s,

@@ -6,7 +6,7 @@ mtr_tpu_torch/csrc/ into build/mtr_tpu_torch/<hash>/ at the repository
 root, keyed by a hash of the sources, headers and flags, so an edited
 source never loads a stale binary.  The kernels' first designs
 (csrc/wrap_dp_counts_block.cu, csrc/wrap_dp_consensus_v1.cu,
-csrc/dbg_walk_v1.cu) build only on request, into a library of their own
+csrc/dbg_walk_v1.cu, csrc/directional_index_v1.cu) build only on request, into a library of their own
 (baseline_library): chip_smoke.py times the kernels against them, and no
 path of the port launches them.  A failed build raises with nvcc's
 stderr: there is no fallback to the plain version.
@@ -30,7 +30,8 @@ SOURCES = tuple(os.path.join(_CSRC, name) for name in (
 HEADERS = tuple(os.path.join(_CSRC, name) for name in (
     "wrap_dp_rows.cuh", "wrap_dp_warp.cuh"))
 BASELINE = tuple(os.path.join(_CSRC, name) for name in (
-    "wrap_dp_counts_block.cu", "wrap_dp_consensus_v1.cu", "dbg_walk_v1.cu"))
+    "wrap_dp_counts_block.cu", "wrap_dp_consensus_v1.cu", "dbg_walk_v1.cu",
+    "directional_index_v1.cu"))
 BUILD_DIR = os.path.join(_ROOT, "build", "mtr_tpu_torch")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-Xcompiler", "-fPIC")
@@ -116,9 +117,9 @@ def library() -> ctypes.CDLL:
                 "mtr_wrap_dp_consensus": "ipppppppipppip",
                 "mtr_dbg_walk": "ppipi" + "p" * 11,
                 "mtr_dbg_walk_jobs_per_block": "",
-                "mtr_di_sliding_l1": "piiiipp",
-                "mtr_di_pearson_moments": "piiiipppppp",
-                "mtr_di_tile": "i",
+                "mtr_di_sliding_l1": "pipiipip",
+                "mtr_di_pearson_moments": "pipiipip",
+                "mtr_di_resident_warps": "iiii",
             })
         return _LIB
 
@@ -128,7 +129,8 @@ def baseline_library() -> ctypes.CDLL:
     for timing launched by no path of the port:
     mtr_wrap_dp_counts_block(u_span 128/256/512, ...) (the counts
     kernel), mtr_wrap_dp_consensus_v1_fill / _traceback (u_span
-    128/256/512) and mtr_dbg_walk_v1."""
+    128/256/512), mtr_dbg_walk_v1 and mtr_di_sliding_l1_v1 /
+    mtr_di_pearson_moments_v1 (one launch a DI pass)."""
     global _BASELINE_LIB
     with _LOCK:
         if _BASELINE_LIB is None:
@@ -138,5 +140,7 @@ def baseline_library() -> ctypes.CDLL:
                     "mtr_wrap_dp_consensus_v1_fill": "ippppppppip",
                     "mtr_wrap_dp_consensus_v1_traceback": "ippppppippip",
                     "mtr_dbg_walk_v1": "ppipppppipppppp",
+                    "mtr_di_sliding_l1_v1": "piiiipp",
+                    "mtr_di_pearson_moments_v1": "piiiipppppp",
                 })
         return _BASELINE_LIB

@@ -227,15 +227,18 @@ def fill_directional_index_with_end(
     input_len: int,
     rsl: int,
     manhattan: bool = True,
-    di_compute=None,
+    di_compute_k=None,
     use_native: bool = True,
 ):
     """fill_directional_index_with_end (:549-602).
 
     Returns (di, di_end, di_w) arrays of length di_len = L + 2*rsl with
-    read-coordinate entries in [0, L) after de-shifting.  di_compute
-    optionally overrides the per-(k,w) DI pass (used to plug in the
-    device kernel while keeping the sequential pairing logic).
+    read-coordinate entries in [0, L) after de-shifting.
+    di_compute_k(buf, di_len, ws, k, rsl) optionally overrides the DI
+    passes of one k (used to plug in the device kernel while keeping the
+    sequential pairing logic): it returns their di_tmp arrays in ws's
+    order (the codes do not change between the w of one k), which
+    put_local_maximum then takes in the same order.
     """
     L = input_len
     di_len = L + 2 * rsl
@@ -243,7 +246,7 @@ def fill_directional_index_with_end(
     # on reads longer than ~833 kbp); the arena carries headroom so every
     # read the FASTA limit admits processes cleanly, with the l4
     # random-fill cap kept at the reference's array size for parity.
-    if di_compute is None and use_native:
+    if di_compute_k is None and use_native:
         from mtr_tpu_torch import native
 
         res = native.fill_di(arena.input_w_rand, arena.org_input, L, rsl,
@@ -257,16 +260,22 @@ def fill_directional_index_with_end(
     for k in (1, 3, 5):
         max_w = {1: 20, 3: 80}.get(k, 10240)
         init_input_w_rand(arena, k, L, rsl)
+        ws = []
         w = 5
         while w <= max_w and w < L // 2:
-            if di_compute is not None:
-                di_tmp = di_compute(arena.input_w_rand, di_len, w, k, rsl)
-            elif manhattan:
+            ws.append(w)
+            w *= 2
+        if di_compute_k is not None:
+            tmps = di_compute_k(arena.input_w_rand, di_len, ws, k, rsl)
+            for w, di_tmp in zip(ws, tmps):
+                put_local_maximum(di_tmp, di, di_end, di_w, di_len, w, use_native=use_native)
+            continue
+        for w in ws:
+            if manhattan:
                 di_tmp = di_manhattan(arena.input_w_rand, di_len, w, k, rsl, use_native=use_native)
             else:
                 di_tmp = di_pearson(arena.input_w_rand, di_len, w, k, rsl)
             put_local_maximum(di_tmp, di, di_end, di_w, di_len, w, use_native=use_native)
-            w *= 2
 
     # de-shift random flanks back to read coordinates (:587-597)
     di[:L] = di[rsl : rsl + L]

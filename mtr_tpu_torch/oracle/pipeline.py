@@ -66,7 +66,7 @@ def handle_one_read_oracle(
     read_id: str,
     input_len: int,
     cfg: MTRConfig = DEFAULT_CONFIG,
-    di_compute=None,
+    di_compute_k=None,
 ) -> list[RepeatRecord]:
     """handle_one_read.c:190-266 — returns the chained records."""
     min_rsl = 100
@@ -74,7 +74,7 @@ def handle_one_read_oracle(
 
     di, di_end, di_w = fill_directional_index_with_end(
         arena, input_len, rsl, manhattan=cfg.manhattan_distance,
-        di_compute=di_compute, use_native=cfg.use_native,
+        di_compute_k=di_compute_k, use_native=cfg.use_native,
     )
 
     accepted: list[RepeatRecord] = []

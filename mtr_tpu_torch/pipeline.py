@@ -30,7 +30,7 @@ from mtr_tpu_torch.config import DEFAULT_CONFIG, MTRConfig
 from mtr_tpu_torch.io.fasta import Read, iter_fasta
 from mtr_tpu_torch.ops.dbg_device import dbg_walk_device_batch, native_walks
 from mtr_tpu_torch.ops.directional_index import (
-    make_di_compute,
+    make_di_compute_k,
     make_di_manhattan_sharded,
 )
 from mtr_tpu_torch.ops.mf_filter import walked_mask
@@ -1155,7 +1155,8 @@ def run_file(
     one slot (ops/directional_index.make_di_manhattan_sharded): the mesh
     of a ShardedTorchDPBatcher, or every card when no batcher is given
     and there is more than one (mtr_tpu/pipeline.py:1723-1728); Pearson
-    stays on one device."""
+    stays on one device, where every pass of one k is one launch
+    (ops/directional_index.make_di_compute_k)."""
     import gc
     import sys
 
@@ -1177,12 +1178,12 @@ def run_file(
     else:
         mesh = batcher_mesh(batcher)
     device = batcher_device(batcher)
-    di_compute = None
+    di_compute_k = None
     if cfg.backend == "device":
         if cfg.manhattan_distance and mesh is not None and mesh.size > 1:
-            di_compute = make_di_manhattan_sharded(mesh)
+            di_compute_k = make_di_manhattan_sharded(mesh)
         else:
-            di_compute = make_di_compute(device, cfg.manhattan_distance)
+            di_compute_k = make_di_compute_k(device, cfg.manhattan_distance)
     batch: list[ReadState] = []
     done_reads = 0
     skip = 0
@@ -1306,8 +1307,8 @@ def run_file(
                 # the reader thread's DI shares the card with stage B's DP
                 di, di_end, di_w = fill_directional_index_with_end(
                     arena, L, rsl, manhattan=cfg.manhattan_distance,
-                    di_compute=(di_compute
-                                if L >= cfg.device_di_threshold else None),
+                    di_compute_k=(di_compute_k
+                                  if L >= cfg.device_di_threshold else None),
                     use_native=cfg.use_native,
                 )
             batch.append(ReadState(read, org_eff, di, di_end, di_w, ridx))

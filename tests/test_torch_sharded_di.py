@@ -60,17 +60,21 @@ def test_sliding_l1_sharded_keeps_the_halo_bound(vals):
 
 
 def test_di_compute_sharded_equals_one_device(vals):
-    """The plug-in's placement and bounds, against make_di_compute's."""
-    di_len, w, k, rsl = 12000, 320, K, 1200
+    """The plug-in's placement and bounds, against make_di_compute_k's, a
+    pass and a group of passes."""
+    di_len, k, rsl = 12000, K, 1200
     buf = np.zeros(di_len + 16, np.int32)
     buf[: di_len - k + 1] = vals[: di_len - k + 1]
-    want = di_ops.make_di_compute("cpu", True)(buf, di_len, w, k, rsl)
-    got = di_ops.make_di_manhattan_sharded(cpu_mesh(4))(buf, di_len, w, k,
-                                                        rsl)
-    np.testing.assert_array_equal(got, want)
-    assert (got[w : w + 100] != -1.0).any()
-    short = di_ops.make_di_manhattan_sharded(cpu_mesh(4))(buf, 100, 90, k, 40)
-    assert (short == -1.0).all()
+    one = di_ops.make_di_compute_k("cpu", True)
+    sharded = di_ops.make_di_manhattan_sharded(cpu_mesh(4))
+    for ws in ([320], [5, 10, 20, 40, 80, 160, 320]):
+        got = sharded(buf, di_len, ws, k, rsl)
+        assert len(got) == len(ws)
+        for g, want, w in zip(got, one(buf, di_len, ws, k, rsl), ws):
+            np.testing.assert_array_equal(g, want)
+            assert (g[w : w + 100] != -1.0).any()
+    short = sharded(buf, 100, [90], k, 40)
+    assert len(short) == 1 and (short[0] == -1.0).all()
 
 
 def test_pipeline_uses_sharded_di_and_matches_host(monkeypatch, tmp_path):
@@ -140,3 +144,34 @@ def test_sliding_l1_sharded_reads_exactly_the_pass(n_slots, w, n_out):
     np.testing.assert_array_equal(got, sliding_l1(vals, w, n_out,
                                                   use_native=False))
     assert di_ops.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("cut,reach", [(2925, [False, False, True]),
+                                       (2905, [True, True, True]),
+                                       (2950, [False, False, False])])
+def test_group_stale_tail_some_passes_reach(cut, reach):
+    """A stale tail of codes up to 63 from `cut` on, behind k-1 codes: the
+    Manhattan plug-in called a pass at a time sizes each pass's alphabet
+    over its own codes (4 symbols for the passes that end before the
+    tail, 64 for those that reach it), called on the group it takes the
+    group's largest; every pass's DI is the same both ways, through the
+    sharded plug-in and the oracle."""
+    rng = np.random.default_rng(cut)
+    di_len, k, rsl, ws = 3000, 1, 100, [5, 10, 20]
+    buf = rng.integers(0, 4, di_len + 64).astype(np.int32)
+    buf[cut:] = rng.integers(0, 64, len(buf) - cut)
+    n_pos = [di_len - rsl - k + 2 * w for w in ws]
+    assert [cut < n for n in n_pos] == reach
+    plug = di_ops.make_di_compute_k("cpu", True)
+    sharded = di_ops.make_di_manhattan_sharded(cpu_mesh(3))(buf, di_len, ws,
+                                                            k, rsl)
+    for w, got, got_sharded in zip(ws, plug(buf, di_len, ws, k, rsl),
+                                   sharded):
+        n_i = di_len - w - rsl - k + 1
+        D = sliding_l1(buf, w, n_i + w, use_native=False)
+        want = np.full(di_len, -1.0)
+        want[w : w + n_i] = (D[:n_i] - D[w : w + n_i]) / float(2 * w)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(plug(buf, di_len, [w], k, rsl)[0],
+                                      want)
+        np.testing.assert_array_equal(got_sharded, want)
