@@ -304,7 +304,9 @@ def preflight():
     from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
     from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
 
-    before = counts_op.LAUNCHES
+    from mtr_tpu_torch.utils.timers import TIMERS
+
+    before = TIMERS.counters["launch.wrap_dp_counts"]
 
     rng = np.random.default_rng(229)
     unit = rng.integers(0, 4, 100).astype(np.int8)
@@ -315,7 +317,8 @@ def preflight():
     flat, starts, scal, units = (torch.from_numpy(a).cuda() for a in batch)
     want = counts_op.wrap_dp_counts_plain(
         scal, gather_segments(flat, starts, 512), units).cpu().numpy()
-    check(counts_op.LAUNCHES == before + 1, "preflight launched no kernel")
+    check(TIMERS.counters["launch.wrap_dp_counts"] == before + 1,
+          "preflight launched no kernel")
     check(np.array_equal(got[:, :11], want[:, :11]),
           "preflight: the counts kernel disagrees with the plain version")
     info(f"preflight launch: wrap_dp_counts on {len(jobs)} jobs (unit 100, "
@@ -1013,28 +1016,35 @@ def device_path(fasta, golden, hybrid_rate, host_rate):
     return launches, dt
 
 
-def reset_counts():
-    from mtr_tpu_torch.ops import dbg_device as dw
-    from mtr_tpu_torch.ops import directional_index as di
-    from mtr_tpu_torch.ops import wrap_dp_consensus as cons_op
-    from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
+_COUNTS_BASE: dict = {}
 
-    counts_op.LAUNCHES = cons_op.LAUNCHES = dw.LAUNCHES = 0
-    dw.STAGE_A_CALLS = di.CALLS = di.SHARDED_CALLS = 0
-    di.KERNEL_LAUNCHES.update(di_sliding_l1=0, di_pearson_moments=0)
+
+def reset_counts():
+    """Launch counts from now (read_counts reads the port's counters'
+    growth since)."""
+    from mtr_tpu_torch.utils.timers import TIMERS
+
+    _COUNTS_BASE.clear()
+    _COUNTS_BASE.update(TIMERS.snapshot()[1])
 
 
 def read_counts():
-    from mtr_tpu_torch.ops import dbg_device as dw
     from mtr_tpu_torch.ops import directional_index as di
-    from mtr_tpu_torch.ops import wrap_dp_consensus as cons_op
-    from mtr_tpu_torch.ops import wrap_dp_counts as counts_op
+    from mtr_tpu_torch.utils.timers import TIMERS
 
-    return {"counts": counts_op.LAUNCHES, "consensus": cons_op.LAUNCHES,
-            "dbg_walk": dw.LAUNCHES, "stage_a": dw.STAGE_A_CALLS,
-            "di": di.CALLS, "di_sharded": di.SHARDED_CALLS,
-            "di_l1_kernel": di.KERNEL_LAUNCHES["di_sliding_l1"],
-            "di_pcc_kernel": di.KERNEL_LAUNCHES["di_pearson_moments"]}
+    counters = TIMERS.snapshot()[1]
+
+    def grew(*keys):
+        return sum(counters.get(k, 0) - _COUNTS_BASE.get(k, 0) for k in keys)
+
+    return {"counts": grew("launch.wrap_dp_counts"),
+            "consensus": grew("launch.wrap_dp_consensus"),
+            "dbg_walk": grew("launch.dbg_walk"),
+            "stage_a": grew("stage_a_calls"),
+            "di": grew(*di.PASS_COUNTERS),
+            "di_sharded": grew("di_sharded_passes"),
+            "di_l1_kernel": grew("launch.di_sliding_l1"),
+            "di_pcc_kernel": grew("launch.di_pearson_moments")}
 
 
 def device_walk_path(fasta, golden):

@@ -71,7 +71,7 @@ def main(argv=None) -> int:
         print("--cluster needs every record of the run; it cannot be "
               "combined with --checkpoint resume", file=sys.stderr)
         return 1
-    t0 = time.time()
+    t0 = time.perf_counter()
     out = sys.stdout
     from mtr_tpu_torch.io.fasta import FatalInputError
     from mtr_tpu_torch.utils.encoding import InvalidBaseError
@@ -116,7 +116,7 @@ def main(argv=None) -> int:
     if cfg.print_computation_time:
         from mtr_tpu_torch.utils.timers import TIMERS
 
-        TIMERS.add("all", time.time() - t0)
+        TIMERS.add("all", time.perf_counter() - t0)
         TIMERS.print_summary(sys.stderr)
     return 0
 

@@ -53,10 +53,8 @@ V_MAX = V_BUCKETS[-1]   # widest range walked on the device
 CHUNK_ELEMS = 1 << 23   # stage-A table elements per chunk
 JOBS_PER_LAUNCH = 1 << 16  # stage-B jobs per launch (units + scores: 256 MB)
 
-# stage-A passes and walk-kernel launches since the last reset (the main
-# path shows it ran here)
-STAGE_A_CALLS = 0
-LAUNCHES = 0
+# stage-A passes and walk-kernel launches are TIMERS.counters
+# "stage_a_calls" and "launch.dbg_walk" (the main path shows it ran here)
 # work of stage_b_plain's walks since the last reset: table lookups and
 # walk steps (the walk kernel's bound in chip_smoke.py counts them)
 PLAIN_WORK = {"lookups": 0, "steps": 0}
@@ -152,8 +150,7 @@ def stage_a(flat, base, n_code, v_len, k, v_pad: int):
     int32 sorted values, adj (Q, v_pad) int32 live counts (listed max
     nodes decremented), maxfreq (Q,) int32, nodes (Q, 100) int32 (-1
     padded), n_nodes (Q,) int32: the outputs of mtr_tpu's _stage_a."""
-    global STAGE_A_CALLS
-    STAGE_A_CALLS += 1
+    TIMERS.count("stage_a_calls")
     i32 = torch.int32
     dev = flat.device
     svals, perm = torch.sort(query_values(flat, base, n_code, v_len, k, v_pad),
@@ -323,7 +320,6 @@ def dbg_walk(sv, sc, tq, node0, is_fwd, k, lmax):
     """Stage B on one chunk's tables (shapes as stage_b_plain; every input
     int32).  CUDA tensors launch the kernel (csrc/dbg_walk.cu) or the call
     raises; CPU tensors run stage_b_plain."""
-    global LAUNCHES
     tensors = (sv, sc, tq, node0, is_fwd, k, lmax)
     if all(t.device.type == "cpu" for t in tensors):
         return stage_b_plain(*tensors)
@@ -333,7 +329,7 @@ def dbg_walk(sv, sc, tq, node0, is_fwd, k, lmax):
     launch, outs = prepare(*tensors)
     if launch is not None:
         launch()
-        LAUNCHES += 1
+        TIMERS.count("launch.dbg_walk")
     return outs
 
 
@@ -487,8 +483,9 @@ def _run_chunk(flat, offs, chunk, v_pad, q, res, rows, host):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
     base = torch.from_numpy(offs[read_idx[chunk]] + qss[chunk]).to(dev)
-    with TIMERS.section("count_table"):  # device analog of -c's "count
-        # table generation" (consensus.c:73-127), materialization included
+    # the device analog of -c's "count table generation"
+    # (consensus.c:73-127), materialization included
+    with TIMERS.span("mtr.walk.stage_a", "count_table"):
         sv, adj, maxfreq, nodes, n_nodes = stage_a(
             flat, base, put(n_code[chunk]), put(V[chunk]), put(ks[chunk]),
             v_pad)
@@ -504,7 +501,8 @@ def _run_chunk(flat, offs, chunk, v_pad, q, res, rows, host):
     period = np.zeros(n_jobs, np.int32)
     ovf = np.zeros(n_jobs, bool)
     dev_rows = []  # per launch: (first job, units, scores) on the device
-    with TIMERS.section("walk_kernel"):  # launches and their pulls
+    # launches and their pulls
+    with TIMERS.span("mtr.walk.kernel", "walk_kernel"):
         for lo in range(0, n_jobs, JOBS_PER_LAUNCH):
             hi = min(lo + JOBS_PER_LAUNCH, n_jobs)
             f, p, u, s, o = dbg_walk(sv, adj, *(a[lo:hi] for a in args))
@@ -513,39 +511,41 @@ def _run_chunk(flat, offs, chunk, v_pad, q, res, rows, host):
             ovf[lo:hi] = o.cpu().numpy()
             dev_rows.append((lo, u, s))
 
-    # per (row, direction) group: the first found node wins; an overflow
-    # at or before the winner (or anywhere, without one) could have
-    # changed the outcome, so the query goes to the host
-    size = np.repeat(nn, 2)
-    start = np.cumsum(size) - size
-    big = np.int64(1) << 40
-    win = np.minimum.reduceat(np.where(found, rank, big), start)
-    bad = np.logical_or.reduceat(ovf & (rank <= np.repeat(win, size)), start)
-    bad_q = bad[0::2] | bad[1::2]
-    host.append(chunk[gated[bad_q]])
-    good = ~bad_q
-    qg = chunk[gated]
-    for d, key_row, key_per in ((0, "fwd_row", "fwd_period"),
-                                (1, "bwd_row", "bwd_period")):
-        has = good & (win[d::2] < big)
-        if d == 1:
-            res["found_last"][qg[good]] = has[good]
-        if not has.any():
-            continue
-        wj = start[d::2][has] + win[d::2][has]
-        u = np.zeros((len(wj), MAX_PERIOD), np.int32)
-        s = np.zeros_like(u)
-        for lo, du, ds in dev_rows:
-            sel = np.nonzero((wj >= lo) & (wj < lo + du.shape[0]))[0]
-            if len(sel):
-                idx = torch.from_numpy(wj[sel] - lo).to(dev)
-                u[sel] = du[idx].cpu().numpy()
-                s[sel] = ds[idx].cpu().numpy()
-        p = period[wj]
-        back = d == 1
-        res[key_row][qg[has]] = rows.add(_keep_period(u, p, back),
-                                         _keep_period(s, p, back))
-        res[key_per][qg[has]] = p
+    with TIMERS.span("mtr.walk.rows"):  # winners, their rows pulled
+        # per (row, direction) group: the first found node wins; an overflow
+        # at or before the winner (or anywhere, without one) could have
+        # changed the outcome, so the query goes to the host
+        size = np.repeat(nn, 2)
+        start = np.cumsum(size) - size
+        big = np.int64(1) << 40
+        win = np.minimum.reduceat(np.where(found, rank, big), start)
+        bad = np.logical_or.reduceat(ovf & (rank <= np.repeat(win, size)),
+                                     start)
+        bad_q = bad[0::2] | bad[1::2]
+        host.append(chunk[gated[bad_q]])
+        good = ~bad_q
+        qg = chunk[gated]
+        for d, key_row, key_per in ((0, "fwd_row", "fwd_period"),
+                                    (1, "bwd_row", "bwd_period")):
+            has = good & (win[d::2] < big)
+            if d == 1:
+                res["found_last"][qg[good]] = has[good]
+            if not has.any():
+                continue
+            wj = start[d::2][has] + win[d::2][has]
+            u = np.zeros((len(wj), MAX_PERIOD), np.int32)
+            s = np.zeros_like(u)
+            for lo, du, ds in dev_rows:
+                sel = np.nonzero((wj >= lo) & (wj < lo + du.shape[0]))[0]
+                if len(sel):
+                    idx = torch.from_numpy(wj[sel] - lo).to(dev)
+                    u[sel] = du[idx].cpu().numpy()
+                    s[sel] = ds[idx].cpu().numpy()
+            p = period[wj]
+            back = d == 1
+            res[key_row][qg[has]] = rows.add(_keep_period(u, p, back),
+                                             _keep_period(s, p, back))
+            res[key_per][qg[has]] = p
 
 
 _NATIVE_LOCK = threading.Lock()
@@ -612,14 +612,15 @@ def dbg_walk_device_batch(org_arrays, len_table, read_idx, qss, qes, ks,
     reach = (V <= V_MAX) & (ks >= 1) & (ks <= KMAX)
     host = [np.nonzero(~reach)[0]]
     if reach.any():
-        flat, offs = upload_reads(org_arrays, device)
+        with TIMERS.span("mtr.walk.upload"):
+            flat, offs = upload_reads(org_arrays, device)
         q = (read_idx, qss, qes, ks, V, n_code, lmax)
         for v_pad, chunk in bucket_chunks(np.nonzero(reach)[0], V, V_MAX):
             _run_chunk(flat, offs, chunk, v_pad, q, res, rows, host)
     h = np.sort(np.concatenate(host))  # batch order keeps the k runs
     if len(h):
         TIMERS.count("walk_fallback_queries", len(h))
-        with TIMERS.section("walk_host_route"):
+        with TIMERS.span("mtr.walk.host_route", "walk_host_route"):
             _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res,
                         rows)
     res["units"], res["scores"] = rows.stacked()

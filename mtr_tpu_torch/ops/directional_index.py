@@ -70,14 +70,12 @@ WARP_BINS = 32768
 MAX_SLIDERS = 8
 NARROW_MAX_W = 32767
 
-# device DI passes since the last reset (the main path shows it ran here),
-# and those of them cut over a mesh; the -c summary counts them by kind
-# (di_manhattan_passes, di_pearson_passes, di_sharded_passes)
-CALLS = 0
-SHARDED_CALLS = 0
-# kernel launches since the last reset, by kernel: one a group of passes
-# (a bench read: one a k), one a slot and pass when cut over a mesh
-KERNEL_LAUNCHES = {"di_sliding_l1": 0, "di_pearson_moments": 0}
+# device DI passes (the main path shows it ran here) are TIMERS.counters
+# by kind, those cut over a mesh apart; the -c summary prints them
+PASS_COUNTERS = ("di_manhattan_passes", "di_pearson_passes",
+                 "di_sharded_passes")
+# kernel launches are TIMERS.counters "launch.<kernel>": one a group of
+# passes (a bench read: one a k), one a slot and pass when cut over a mesh
 
 _RESIDENT: dict = {}
 
@@ -327,7 +325,7 @@ def sliding_l1_kernel(codes: torch.Tensor, n_outs, ws,
     (split_group).  Symbols outside [0, n_sym) skipped.  Counts the
     launch."""
     out = _launch(codes, n_outs, ws, n_sym, False)
-    KERNEL_LAUNCHES["di_sliding_l1"] += 1
+    TIMERS.count("launch.di_sliding_l1")
     return out
 
 
@@ -337,7 +335,7 @@ def pearson_moments_kernel(codes: torch.Tensor, n_outs, ws,
     sliding_l1_kernel: a flat int32 tensor of (5, n_out) blocks.  Counts
     the launch."""
     out = _launch(codes, n_outs, ws, n_sym, True)
-    KERNEL_LAUNCHES["di_pearson_moments"] += 1
+    TIMERS.count("launch.di_pearson_moments")
     return out
 
 
@@ -389,11 +387,9 @@ def sliding_l1_device(vals: np.ndarray, w: int, n_out: int,
                       device) -> np.ndarray:
     """Drop-in for oracle.directional_index.sliding_l1 on `device`: one
     pass, a one-pass table on the current stream."""
-    global CALLS
     n_pos = n_out + 2 * w - 1
     k = _k_for(vals, n_pos)
     check_pass(vals, n_pos, w, k)
-    CALLS += 1
     TIMERS.count("di_manhattan_passes")
     if n_out <= 0:
         return np.zeros(0, np.int64)
@@ -452,7 +448,6 @@ def di_group_device(buf: np.ndarray, di_len: int, ws, k: int, rsl: int,
     `device`, on the current stream: the di_tmp arrays of the oracle's
     passes, in ws's order.  `staging` (a _Staging) carries a CUDA group's
     codes and outputs through pinned memory."""
-    global CALLS
     device = torch.device(device)
     passes = [(w, di_len - w - rsl - k + 1) for w in ws]
     passes = [(w, n_i) for w, n_i in passes if n_i > 0]
@@ -468,7 +463,6 @@ def di_group_device(buf: np.ndarray, di_len: int, ws, k: int, rsl: int,
         check_pass(buf, n_codes, max(w for w, _ in passes), kk)
         for w, _ in passes:
             check_pass(buf, 0, w, kk)
-        CALLS += len(passes)
         TIMERS.count("di_manhattan_passes" if manhattan
                      else "di_pearson_passes", len(passes))
         pws = [w for w, _ in passes]
@@ -497,13 +491,10 @@ def sliding_l1_sharded(vals: np.ndarray, w: int, n_out: int, mesh, k: int,
     the program)."""
     from mtr_tpu_torch.parallel.mesh import _run_slots, split_bounds
 
-    global CALLS, SHARDED_CALLS
     if 2 * w > halo:
         raise ValueError(f"window {w} needs a halo of {2 * w} > {halo}")
     n_out = max(n_out, 0)
     check_pass(vals, n_out + 2 * w - 1, w, k)
-    CALLS += 1
-    SHARDED_CALLS += 1
     TIMERS.count("di_sharded_passes")
 
     def work(dev, lo, hi):
@@ -523,7 +514,7 @@ def make_di_manhattan_sharded(mesh):
 
     def di_compute_k(buf, di_len: int, ws, k: int, rsl: int):
         tmps = []
-        with TIMERS.section("di_device"):
+        with TIMERS.span("mtr.di.device", "di_device"):
             for w in ws:
                 n_i = di_len - w - rsl - k + 1
                 if n_i <= 0:
@@ -545,7 +536,7 @@ def make_di_compute_k(device, manhattan: bool):
     staging = _Staging() if device.type == "cuda" else None
 
     def di_compute_k(buf, di_len: int, ws, k: int, rsl: int):
-        with TIMERS.section("di_device"):
+        with TIMERS.span("mtr.di.device", "di_device"):
             return di_group_device(buf, di_len, ws, k, rsl, device,
                                    manhattan, staging)
 

@@ -35,12 +35,12 @@ import torch
 
 from mtr_tpu_torch.native import MAX_PERIOD
 from mtr_tpu_torch.ops.wrap_dp_counts import NEG, U_SPANS
+from mtr_tpu_torch.utils.timers import TIMERS
 
 # move codes
 STOP, DIAG, DEL, INS = 0, 1, 2, 3
 
-# kernel launches since the last reset
-LAUNCHES = 0
+# kernel launches are TIMERS.counters "launch.wrap_dp_consensus"
 
 
 def wrap_dp_fill_plain(scal: torch.Tensor, rep: torch.Tensor,
@@ -313,13 +313,12 @@ def prepare(flat, starts, scal, unit, u_span, factor):
 
 
 def _launch(flat, starts, scal, unit, u_span, factor):
-    global LAUNCHES
     launch, (fused, best, done, _, _) = prepare(flat, starts, scal, unit,
                                                 u_span, factor)
     if launch is None:
         return fused, best
     launch()
-    LAUNCHES += 1
+    TIMERS.count("launch.wrap_dp_consensus")
     if not bool(done.all()):
         raise RuntimeError(
             "wrap_dp_consensus: a traceback walk reached its step bound "

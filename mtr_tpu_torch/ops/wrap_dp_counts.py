@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from mtr_tpu_torch.utils.timers import TIMERS
+
 NEG = -(1 << 30)
 # unit row widths the kernel takes: 32 * C, C = 1..16 columns a lane
 # (units 1-512)
@@ -42,8 +44,8 @@ U_SPANS = tuple(32 * c for c in range(1, 17))
 R_MAX = 1 << 20
 VALUE_LIMIT = 1 << 31
 
-# kernel launches since the last reset (the main path shows it ran here)
-LAUNCHES = 0
+# kernel launches are TIMERS.counters "launch.wrap_dp_counts" (the main
+# path shows it ran here)
 
 
 def u_span_for(unit_len: int) -> int:
@@ -213,7 +215,6 @@ def wrap_dp_counts(flat: torch.Tensor, starts: torch.Tensor,
 
 
 def _launch(flat, starts, scal, unit, u_span):
-    global LAUNCHES
     from mtr_tpu_torch.ops import _build
 
     if u_span not in U_SPANS:
@@ -245,5 +246,5 @@ def _launch(flat, starts, scal, unit, u_span):
         raise RuntimeError(
             f"wrap_dp_counts kernel launch failed: CUDA error {err} "
             f"(u_span={u_span}, B={b})")
-    LAUNCHES += 1
+    TIMERS.count("launch.wrap_dp_counts")
     return out

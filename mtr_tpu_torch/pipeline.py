@@ -18,7 +18,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-import time
 from collections import defaultdict
 
 import numpy as np
@@ -177,7 +176,7 @@ class HostDPBatcher:
             orgs.append(np.ascontiguousarray(job.org, np.int32))
             qss.append(job.qs)
             qes.append(job.qe)
-        with TIMERS.section("dp_fill"):
+        with TIMERS.span("mtr.dp.host", "dp_fill"):
             counts, cons, miss = native.wrap_dp_batch(
                 orgs, qss, qes, units, ulens, schemes, modes)
         TIMERS.count("dp_jobs", n)
@@ -303,43 +302,47 @@ def _polish_phase(batcher, states, polish_set, cfg) -> None:
     both rounds compare against the PRE-revision ratio."""
     if not polish_set:
         return
+    TIMERS.count("polish_items", len(polish_set))
     items = []
-    for q, rr in polish_set:
-        org = states[q.read_idx].org
-        input_len = states[q.read_idx].read.length
-        polish_repeat(org, input_len, rr)
-        items.append((q, rr, rr.match_ratio()))
+    with TIMERS.span("mtr.polish.repeat"):
+        for q, rr in polish_set:
+            org = states[q.read_idx].org
+            input_len = states[q.read_idx].read.length
+            polish_repeat(org, input_len, rr)
+            items.append((q, rr, rr.match_ratio()))
 
     for scheme in ((5, 1, 1), (1, 1, 3)):
-        # consensus DP on current units
-        consjobs = []
-        tmps = []
-        for q, rr, base_ratio in items:
-            org = states[q.read_idx].org
-            tmp = rr.copy()
-            tmp.match_gain, tmp.mismatch_penalty, tmp.indel_penalty = scheme
-            consjobs.append(
-                DPJob(org, tmp.rep_start, tmp.rep_end, _encode_unit(tmp.string),
-                      scheme, mode="consensus")
-            )
-            tmps.append(tmp)
-        batcher.run(consjobs)
-        # host rebuild (batched argmax), then re-score the revised units
-        rebuild_units_batch(tmps, [job.result for job in consjobs])
-        scorejobs = []
-        score_meta = []
-        for (q, rr, base_ratio), tmp, job in zip(items, tmps, consjobs):
-            if tmp.rep_period < MAX_PERIOD:
+        with TIMERS.span("mtr.polish.consensus"):
+            # consensus DP on current units
+            consjobs = []
+            tmps = []
+            for q, rr, base_ratio in items:
                 org = states[q.read_idx].org
-                sj = DPJob(org, tmp.rep_start, tmp.rep_end,
-                           _encode_unit(tmp.string), scheme)
-                scorejobs.append(sj)
-                score_meta.append(((q, rr, base_ratio), tmp, sj))
-        batcher.run(scorejobs)
-        for (q, rr, base_ratio), tmp, sj in score_meta:
-            apply_counts(tmp, sj)
-            if ratio_less(base_ratio, tmp.match_ratio()):
-                _assign(rr, tmp)
+                tmp = rr.copy()
+                tmp.match_gain, tmp.mismatch_penalty, tmp.indel_penalty = scheme
+                consjobs.append(
+                    DPJob(org, tmp.rep_start, tmp.rep_end,
+                          _encode_unit(tmp.string), scheme, mode="consensus")
+                )
+                tmps.append(tmp)
+            batcher.run(consjobs)
+            # host rebuild (batched argmax), then re-score the revised units
+            rebuild_units_batch(tmps, [job.result for job in consjobs])
+        with TIMERS.span("mtr.polish.score"):
+            scorejobs = []
+            score_meta = []
+            for (q, rr, base_ratio), tmp, job in zip(items, tmps, consjobs):
+                if tmp.rep_period < MAX_PERIOD:
+                    org = states[q.read_idx].org
+                    sj = DPJob(org, tmp.rep_start, tmp.rep_end,
+                               _encode_unit(tmp.string), scheme)
+                    scorejobs.append(sj)
+                    score_meta.append(((q, rr, base_ratio), tmp, sj))
+            batcher.run(scorejobs)
+            for (q, rr, base_ratio), tmp, sj in score_meta:
+                apply_counts(tmp, sj)
+                if ratio_less(base_ratio, tmp.match_ratio()):
+                    _assign(rr, tmp)
 
 
 
@@ -464,55 +467,60 @@ def _process_wave(states, batcher, cfg, queries, range_result) -> None:
     (read_idx, qs, qe); value None = computed but no qualifying
     record)."""
     # phase 3+4a: scheme selection for every candidate
-    _wrap_dp_schemes(batcher, [(q, states[q.read_idx].org) for q in queries])
+    with TIMERS.span("mtr.stage_b.schemes"):
+        _wrap_dp_schemes(batcher,
+                         [(q, states[q.read_idx].org) for q in queries])
 
     # phase 4b: direction selection + gates -> per-query result; build
     # polish set (queries without candidates were never materialized =
     # cleared records)
-    polish_set = []
-    for q in queries:
-        if not q.candidates or q.found == 0:
-            q.result = None
-            continue
-        st = states[q.read_idx]
-        rr = RepeatRecord()
-        rr.read_id = st.read.read_id
-        rr.input_len = st.read.length
-        rr.kmer = q.k
-        select_dp_candidate(rr, q.candidates, cfg.min_match_ratio)
-        if rr.rep_period * (q.qe - q.qs + 1) > cfg.wrap_dp_size:
-            q.result = None
-            continue
-        q.result = rr
-        coverage = rr.repeat_len // rr.rep_period
-        if 5 <= coverage <= 20 and rr.rep_period > 5:
-            polish_set.append((q, rr))
+    with TIMERS.span("mtr.stage_b.select"):
+        polish_set = []
+        for q in queries:
+            if not q.candidates or q.found == 0:
+                q.result = None
+                continue
+            st = states[q.read_idx]
+            rr = RepeatRecord()
+            rr.read_id = st.read.read_id
+            rr.input_len = st.read.length
+            rr.kmer = q.k
+            select_dp_candidate(rr, q.candidates, cfg.min_match_ratio)
+            if rr.rep_period * (q.qe - q.qs + 1) > cfg.wrap_dp_size:
+                q.result = None
+                continue
+            q.result = rr
+            coverage = rr.repeat_len // rr.rep_period
+            if 5 <= coverage <= 20 and rr.rep_period > 5:
+                polish_set.append((q, rr))
 
     # phase 5: polish + revision rounds
-    with TIMERS.section("polish"):
+    with TIMERS.span("mtr.stage_b.polish", "polish"):
         _polish_phase(batcher, states, polish_set, cfg)
 
     # phase 6a: k-sweep selection per range
-    by_range: dict[tuple[int, int, int], list[RangeQuery]] = defaultdict(list)
-    for q in queries:
-        by_range[(q.read_idx, q.qs, q.qe)].append(q)
-    for key, qs_list in by_range.items():
-        best = None
-        max_ratio = -1.0
-        for q in sorted(qs_list, key=lambda x: x.k):
-            tmp = q.result
-            if tmp is None:
-                continue  # cleared records never pass the filters below
-            r = tmp.match_ratio()
-            if (
-                ratio_less(max_ratio, r)
-                and cfg.min_match_ratio <= r
-                and tmp.num_freq_unit > MIN_NUM_FREQ_UNIT
-                and MIN_PERIOD <= tmp.rep_period
-            ):
-                max_ratio = r
-                best = tmp
-        range_result[key] = best
+    with TIMERS.span("mtr.stage_b.ksweep"):
+        by_range: dict[tuple[int, int, int], list[RangeQuery]] = \
+            defaultdict(list)
+        for q in queries:
+            by_range[(q.read_idx, q.qs, q.qe)].append(q)
+        for key, qs_list in by_range.items():
+            best = None
+            max_ratio = -1.0
+            for q in sorted(qs_list, key=lambda x: x.k):
+                tmp = q.result
+                if tmp is None:
+                    continue  # cleared records never pass the filters below
+                r = tmp.match_ratio()
+                if (
+                    ratio_less(max_ratio, r)
+                    and cfg.min_match_ratio <= r
+                    and tmp.num_freq_unit > MIN_NUM_FREQ_UNIT
+                    and MIN_PERIOD <= tmp.rep_period
+                ):
+                    max_ratio = r
+                    best = tmp
+            range_result[key] = best
 
 
 MAX_WAVES = 6
@@ -599,55 +607,58 @@ class TorchDPBatcher:
         for mode, idxs in groups.items():
             if not idxs:
                 continue
-            u_span = u_span_for(max(len(jobs[i].unit) for i in idxs))
-            # longest-first: the longest jobs start first
-            idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
-            cuts = ([len(idxs)] if mode == "counts" else _cap_parts(
-                [(jobs[i].qe - jobs[i].qs + 1) * move_row_bytes(
-                    len(jobs[i].unit)) for i in idxs]))
+            with TIMERS.span("mtr.dp.pack"):
+                u_span = u_span_for(max(len(jobs[i].unit) for i in idxs))
+                # longest-first: the longest jobs start first
+                idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
+                cuts = ([len(idxs)] if mode == "counts" else _cap_parts(
+                    [(jobs[i].qe - jobs[i].qs + 1) * move_row_bytes(
+                        len(jobs[i].unit)) for i in idxs]))
             lo = 0
             for hi in cuts:
                 parts[mode].append(idxs[lo:hi])
                 outs[mode].append(
                     self._dispatch(jobs, idxs[lo:hi], u_span, mode))
                 lo = hi
-        with TIMERS.section("dp_wait"):
+        with TIMERS.span("mtr.dp.wait", "dp_wait"):
             # one device->host copy per mode
             res = {mode: torch.cat(o).cpu().numpy()
                    for mode, o in outs.items() if o}
-        for mode, mode_parts in parts.items():
-            off = 0
-            for part in mode_parts:
-                chunk = res[mode][off : off + len(part)]
-                if mode == "counts":
-                    self._collect_counts(jobs, part, chunk)
-                else:
-                    for idx, fused in zip(part, chunk):
-                        jobs[idx].result = (fused[:, :5], fused[:, 5:])
-                off += len(part)
+        with TIMERS.span("mtr.dp.collect"):
+            for mode, mode_parts in parts.items():
+                off = 0
+                for part in mode_parts:
+                    chunk = res[mode][off : off + len(part)]
+                    if mode == "counts":
+                        self._collect_counts(jobs, part, chunk)
+                    else:
+                        for idx, fused in zip(part, chunk):
+                            jobs[idx].result = (fused[:, :5], fused[:, 5:])
+                    off += len(part)
 
     def _dispatch(self, jobs, part, u_span, mode) -> torch.Tensor:
         n = len(part)
-        qs = np.fromiter((jobs[i].qs for i in part), np.int64, n)
-        qe = np.fromiter((jobs[i].qe for i in part), np.int64, n)
-        base = np.fromiter(
-            (self._offsets[id(jobs[i].org)] for i in part), np.int64, n)
-        starts = base + qs + 1
-        rep_len = qe - qs + 1
-        scal = np.zeros((n, 8), np.int32)
-        scal[:, 0] = rep_len
-        scal[:, 2:5] = [jobs[i].scheme for i in part]
-        units = np.full((n, u_span), -2, np.int8)
-        by_unit: dict = defaultdict(list)
-        for row, idx in enumerate(part):
-            by_unit[jobs[idx].unit.tobytes()].append(row)
-        for rows in by_unit.values():
-            unit = jobs[part[rows[0]]].unit
-            units[np.asarray(rows), : len(unit)] = unit
-            scal[rows, 1] = len(unit)
-        factor = (_factor(jobs[i].scheme for i in part)
-                  if mode == "consensus" else 0)
-        with TIMERS.section("dp_dispatch"):
+        with TIMERS.span("mtr.dp.pack"):
+            qs = np.fromiter((jobs[i].qs for i in part), np.int64, n)
+            qe = np.fromiter((jobs[i].qe for i in part), np.int64, n)
+            base = np.fromiter(
+                (self._offsets[id(jobs[i].org)] for i in part), np.int64, n)
+            starts = base + qs + 1
+            rep_len = qe - qs + 1
+            scal = np.zeros((n, 8), np.int32)
+            scal[:, 0] = rep_len
+            scal[:, 2:5] = [jobs[i].scheme for i in part]
+            units = np.full((n, u_span), -2, np.int8)
+            by_unit: dict = defaultdict(list)
+            for row, idx in enumerate(part):
+                by_unit[jobs[idx].unit.tobytes()].append(row)
+            for rows in by_unit.values():
+                unit = jobs[part[rows[0]]].unit
+                units[np.asarray(rows), : len(unit)] = unit
+                scal[rows, 1] = len(unit)
+            factor = (_factor(jobs[i].scheme for i in part)
+                      if mode == "consensus" else 0)
+        with TIMERS.span("mtr.dp.launch", "dp_dispatch"):
             out = self._launch(mode, starts, scal, units, u_span, factor)
         TIMERS.count("dp_jobs", n)
         TIMERS.count("dp_chunks")
@@ -817,22 +828,26 @@ class TorchHybridDPBatcher:
                                for j in small if j.mode == "counts")
         if big:
             err: list = []
+            batch, parent = TIMERS.batch(), TIMERS.current()
 
             def dev_run():
-                try:
-                    if self._batch_orgs is not None:
-                        self.device.begin_batch(self._batch_orgs)
-                        self._batch_orgs = None
-                    self.device._run(big)
-                except Exception as e:  # re-raised on the caller thread
-                    err.append(e)
+                with TIMERS.thread("dp_device", batch, parent), \
+                        TIMERS.span("mtr.dp.device_leg"):
+                    try:
+                        if self._batch_orgs is not None:
+                            with TIMERS.span("mtr.dp.upload"):
+                                self.device.begin_batch(self._batch_orgs)
+                            self._batch_orgs = None
+                        self.device._run(big)
+                    except Exception as e:  # re-raised on the caller thread
+                        err.append(e)
 
             t = threading.Thread(target=dev_run)
             t.start()
             self.host._run(small)
-            t_host_done = time.time()
-            t.join()
-            self.dev_idle_s += time.time() - t_host_done
+            with TIMERS.span("mtr.dp.hybrid_wait") as waited:
+                t.join()
+            self.dev_idle_s += waited.seconds
             if err:
                 raise err[0]
         else:
@@ -959,51 +974,147 @@ def walk_batch(states: list[ReadState], cfg: MTRConfig, pos_sel=None,
     (mtr_tpu/pipeline.py:1347-1487): on `device` (CUDA when None) through
     ops/dbg_device.py under backend "device" with use_device_walks, else
     on the native engine (behind the device pre-filter under "hybrid"
-    with MTR_TPU_MF_FILTER), else the oracle."""
-    _t_period = time.time()  # walk share of "Computing periods"
-    ridx_a, qs_a, qe_a, w_a, k_a = _collect_queries(states, cfg, pos_sel)
-    n_q = len(ridx_a)
-    device = torch.device("cuda") if device is None else device
-    orgs = [st.org for st in states]
-    lens = [st.read.length for st in states]
+    with MTR_TPU_MF_FILTER), else the oracle.
 
-    _t_walk = time.time()
-    res = None
-    if cfg.backend == "device" and cfg.use_device_walks and n_q:
-        res = dbg_walk_device_batch(orgs, lens, ridx_a, qs_a, qe_a, k_a,
-                                    device)
-    elif cfg.use_native and native.available() and n_q:
-        if _use_mf_filter(cfg, n_q, device):
-            res = _filtered_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a, device)
-        else:
-            res = native_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a)
-    if res is not None:
-        queries = _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a, k_a)
-    else:
-        queries = []
-        for i in range(n_q):
-            st = states[int(ridx_a[i])]
-            q = RangeQuery(int(ridx_a[i]), int(qs_a[i]), int(qe_a[i]),
-                           int(w_a[i]), int(k_a[i]))
-            template = RepeatRecord()
-            template.read_id = st.read.read_id
-            template.input_len = st.read.length
-            template.kmer = q.k
-            q.candidates, q.found = walk_candidates(
-                st.org, st.read.length, q.qs, q.qe, template)
-            if q.candidates:
-                queries.append(q)
+    Its span is the walk share of -c's "Computing periods": the walk
+    thread's, or, for an extra wave walked inside stage B, stage B's."""
+    nested = TIMERS.role() == "stage_b"
+    with TIMERS.span("mtr.walk.batch", "period.nested_walks" if nested
+                     else "period.walks"):
+        with TIMERS.span("mtr.walk.collect"):
+            ridx_a, qs_a, qe_a, w_a, k_a = _collect_queries(
+                states, cfg, pos_sel)
+        n_q = len(ridx_a)
+        device = torch.device("cuda") if device is None else device
+        orgs = [st.org for st in states]
+        lens = [st.read.length for st in states]
 
-    TIMERS.add("walks", time.time() - _t_walk)
-    if native.available():
-        # the walk engine's measured init / count-table sections (zeros
-        # unless -c enabled them)
-        init_s, count_s, _walk_s = native.read_stage_timers()
-        TIMERS.add("initialize", init_s)
-        TIMERS.add("count_table", count_s)
-    TIMERS.count("speculative_queries", n_q)
-    TIMERS.add("period", time.time() - _t_period)
+        # "walks": the walk engine and the hits, as -c has always read it
+        res = None
+        if cfg.backend == "device" and cfg.use_device_walks and n_q:
+            with TIMERS.span("mtr.walk.device", "walks"):
+                res = dbg_walk_device_batch(orgs, lens, ridx_a, qs_a, qe_a,
+                                            k_a, device)
+        elif cfg.use_native and native.available() and n_q:
+            with TIMERS.span("mtr.walk.native", "walks"):
+                if _use_mf_filter(cfg, n_q, device):
+                    res = _filtered_walks(orgs, lens, ridx_a, qs_a, qe_a,
+                                          k_a, device)
+                else:
+                    res = native_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a)
+        with TIMERS.span("mtr.walk.hits", "walks"):
+            if res is not None:
+                queries = _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a,
+                                       k_a)
+            else:
+                queries = []
+                for i in range(n_q):
+                    st = states[int(ridx_a[i])]
+                    q = RangeQuery(int(ridx_a[i]), int(qs_a[i]),
+                                   int(qe_a[i]), int(w_a[i]), int(k_a[i]))
+                    template = RepeatRecord()
+                    template.read_id = st.read.read_id
+                    template.input_len = st.read.length
+                    template.kmer = q.k
+                    q.candidates, q.found = walk_candidates(
+                        st.org, st.read.length, q.qs, q.qe, template)
+                    if q.candidates:
+                        queries.append(q)
+
+        if native.available():
+            # the walk engine's measured init / count-table sections (zeros
+            # unless -c enabled them)
+            init_s, count_s, _walk_s = native.read_stage_timers()
+            TIMERS.add("initialize", init_s)
+            TIMERS.add("count_table", count_s)
+        TIMERS.count("speculative_queries", n_q)
+        TIMERS.count("walk_hit_queries", len(queries))
     return queries
+
+
+def _replay(states, all_pos, cursor, computed, nq, accepted,
+            range_result) -> bool:
+    """Exact replay of one wave: advance each read's cursor over its
+    ranges in order, applying the accepted records' kills to the live
+    arrays, up to the first range a later wave must compute.  True once
+    every read is done."""
+    alldone = True
+    for ridx, st in enumerate(states):
+        di, di_end, di_w = st.di, st.di_end, st.di_w
+        pos = all_pos[ridx]
+        c = cursor[ridx]
+        comp = computed[ridx]
+        while c < len(pos):
+            p = int(pos[c])
+            qe = int(di_end[p])
+            if qe < 0:
+                # suppressed before its turn; never computed means
+                # skipped exactly as the reference skips it
+                TIMERS.count("suppressed_ranges")
+                if not comp[p]:
+                    TIMERS.count("pruned_ranges")
+                c += 1
+                continue
+            if not comp[p]:
+                break  # a later wave must compute this position
+            nq[ridx] += 1  # reference query_counter: per live range
+            rr = range_result.get((ridx, p, qe))
+            if _accepts(rr):
+                accepted[ridx].append(rr)
+                span = np.arange(rr.rep_start, rr.rep_end)
+                kill = span[(di[span] != -1) & (di_end[span] < rr.rep_end)]
+                di[kill] = -1.0
+                di_end[kill] = -1
+                di_w[kill] = -1
+            c += 1
+        cursor[ridx] = c
+        if c < len(pos):
+            alldone = False
+    return alldone
+
+
+def _next_wave(states, all_pos, cursor, computed, range_result, wave):
+    """The next wave's positions a read: an optimistic simulation from
+    each cursor (everything still alive once wave reaches MAX_WAVES)."""
+    pos_sel = []
+    n_new = 0
+    for ridx, st in enumerate(states):
+        pos = all_pos[ridx]
+        c = cursor[ridx]
+        if c >= len(pos):
+            pos_sel.append(pos[:0])
+            continue
+        comp = computed[ridx]
+        if wave >= MAX_WAVES:
+            # bound the wave count: compute everything still alive
+            rem = pos[c:]
+            live = rem[(st.di_end[rem] >= 0) & ~comp[rem]]
+            pos_sel.append(live)
+            n_new += len(live)
+            continue
+        di_s = st.di.copy()
+        de_s = st.di_end.copy()
+        need: list[int] = []
+        for p in pos[c:]:
+            p = int(p)
+            qe = int(de_s[p])
+            if qe < 0:
+                continue
+            if not comp[p]:
+                need.append(p)
+                continue
+            rr = range_result.get((ridx, p, qe))
+            if _accepts(rr):
+                span = np.arange(rr.rep_start, rr.rep_end)
+                kill = span[(di_s[span] != -1) & (de_s[span] < rr.rep_end)]
+                di_s[kill] = -1.0
+                de_s[kill] = -1
+        pos_sel.append(np.asarray(need, dtype=pos.dtype))
+        n_new += len(need)
+    if n_new == 0:  # a raise, not an assert: -O would drop it and
+        # turn a stall into an endless loop
+        raise RuntimeError("wave selection stalled with unfinished reads")
+    return pos_sel
 
 
 def process_batch(states: list[ReadState], batcher, cfg: MTRConfig,
@@ -1011,125 +1122,50 @@ def process_batch(states: list[ReadState], batcher, cfg: MTRConfig,
                   device=None):
     """Wave-pruned batch processing (mtr_tpu/pipeline.py:1560-1705, whose
     docstring describes the waves), with every wave's walks through this
-    module's walk_batch on `device`."""
-    batcher.begin_batch([st.org for st in states])
+    module's walk_batch on `device`.  Its span less the walks inside it is
+    stage B's share of -c's "Computing periods" (main.c:113)."""
+    with TIMERS.span("mtr.stage_b.batch"):
+        with TIMERS.span("mtr.stage_b.upload"):
+            batcher.begin_batch([st.org for st in states])
 
-    _t0 = time.time()  # DP share of "Computing periods" (main.c:113)
-    _t_walks = 0.0     # walk_batch reports its own time
+        with TIMERS.span("mtr.stage_b.ranges"):
+            all_pos = [_live_positions(st) for st in states]
+            TIMERS.count("ranges_total", sum(len(p) for p in all_pos))
+            computed = [np.zeros(len(st.di_end), bool) for st in states]
+        if queries is None:
+            pos_sel = wave1_positions(states, cfg)
+            queries = walk_batch(states, cfg, pos_sel, device)
+        elif pos_sel is None:
+            pos_sel = all_pos  # callers that pre-walk every position
 
-    all_pos = [_live_positions(st) for st in states]
-    for p in all_pos:
-        TIMERS.count("ranges_total", len(p))
-    computed = [np.zeros(len(st.di_end), bool) for st in states]
-    if queries is None:
-        pos_sel = wave1_positions(states, cfg)
-        _tw = time.time()
-        queries = walk_batch(states, cfg, pos_sel, device)
-        _t_walks += time.time() - _tw
-    elif pos_sel is None:
-        pos_sel = all_pos  # callers that pre-walk every position
+        range_result: dict[tuple[int, int, int], RepeatRecord | None] = {}
+        cursor = [0] * len(states)
+        accepted: list[list[RepeatRecord]] = [[] for _ in states]
+        nq = [0] * len(states)
+        wave = 0
+        while True:
+            wave += 1
+            with TIMERS.span("mtr.stage_b.ranges"):
+                for ridx, ps in enumerate(pos_sel):
+                    if len(ps):
+                        computed[ridx][ps] = True
+                        TIMERS.count("computed_ranges", len(ps))
+            _process_wave(states, batcher, cfg, queries, range_result)
 
-    range_result: dict[tuple[int, int, int], RepeatRecord | None] = {}
-    cursor = [0] * len(states)
-    accepted: list[list[RepeatRecord]] = [[] for _ in states]
-    nq = [0] * len(states)
-    wave = 0
-    while True:
-        wave += 1
-        for ridx, ps in enumerate(pos_sel):
-            if len(ps):
-                computed[ridx][ps] = True
-                TIMERS.count("computed_ranges", len(ps))
-        _process_wave(states, batcher, cfg, queries, range_result)
+            with TIMERS.span("mtr.stage_b.replay"):
+                alldone = _replay(states, all_pos, cursor, computed, nq,
+                                  accepted, range_result)
+            if alldone:
+                break
+            with TIMERS.span("mtr.stage_b.next_wave"):
+                pos_sel = _next_wave(states, all_pos, cursor, computed,
+                                     range_result, wave)
+            TIMERS.count("waves_extra")
+            queries = walk_batch(states, cfg, pos_sel, device)
 
-        # exact replay: advance cursors, apply kills to the live arrays
-        alldone = True
-        for ridx, st in enumerate(states):
-            di, di_end, di_w = st.di, st.di_end, st.di_w
-            pos = all_pos[ridx]
-            c = cursor[ridx]
-            comp = computed[ridx]
-            while c < len(pos):
-                p = int(pos[c])
-                qe = int(di_end[p])
-                if qe < 0:
-                    # suppressed before its turn; never computed means
-                    # skipped exactly as the reference skips it
-                    TIMERS.count("suppressed_ranges")
-                    if not comp[p]:
-                        TIMERS.count("pruned_ranges")
-                    c += 1
-                    continue
-                if not comp[p]:
-                    break  # a later wave must compute this position
-                nq[ridx] += 1  # reference query_counter: per live range
-                rr = range_result.get((ridx, p, qe))
-                if _accepts(rr):
-                    accepted[ridx].append(rr)
-                    span = np.arange(rr.rep_start, rr.rep_end)
-                    kill = span[(di[span] != -1) & (di_end[span] < rr.rep_end)]
-                    di[kill] = -1.0
-                    di_end[kill] = -1
-                    di_w[kill] = -1
-                c += 1
-            cursor[ridx] = c
-            if c < len(pos):
-                alldone = False
-        if alldone:
-            break
-
-        # next wave: optimistic simulation from each cursor
-        pos_sel = []
-        n_new = 0
-        for ridx, st in enumerate(states):
-            pos = all_pos[ridx]
-            c = cursor[ridx]
-            if c >= len(pos):
-                pos_sel.append(pos[:0])
-                continue
-            comp = computed[ridx]
-            if wave >= MAX_WAVES:
-                # bound the wave count: compute everything still alive
-                rem = pos[c:]
-                live = rem[(st.di_end[rem] >= 0) & ~comp[rem]]
-                pos_sel.append(live)
-                n_new += len(live)
-                continue
-            di_s = st.di.copy()
-            de_s = st.di_end.copy()
-            need: list[int] = []
-            for p in pos[c:]:
-                p = int(p)
-                qe = int(de_s[p])
-                if qe < 0:
-                    continue
-                if not comp[p]:
-                    need.append(p)
-                    continue
-                rr = range_result.get((ridx, p, qe))
-                if _accepts(rr):
-                    span = np.arange(rr.rep_start, rr.rep_end)
-                    kill = span[(di_s[span] != -1) & (de_s[span] < rr.rep_end)]
-                    di_s[kill] = -1.0
-                    de_s[kill] = -1
-            pos_sel.append(np.asarray(need, dtype=pos.dtype))
-            n_new += len(need)
-        if n_new == 0:  # a raise, not an assert: -O would drop it and
-            # turn a stall into an endless loop
-            raise RuntimeError("wave selection stalled with unfinished reads")
-        TIMERS.count("waves_extra")
-        _tw = time.time()
-        queries = walk_batch(states, cfg, pos_sel, device)
-        _t_walks += time.time() - _tw
-
-    TIMERS.add("period", time.time() - _t0 - _t_walks)
-
-    out = []
-    for ridx in range(len(states)):
-        TIMERS.count("queries", nq[ridx])
-        with TIMERS.section("chaining"):
-            out.append(chain_records(accepted[ridx]))
-    return out
+        TIMERS.count("queries", sum(nq))
+        with TIMERS.span("mtr.stage_b.chaining", "chaining"):
+            return [chain_records(acc) for acc in accepted]
 
 
 def run_file(
@@ -1197,15 +1233,19 @@ def run_file(
     # Two-stage batch pipeline: stage A (walks, host CPU) overlaps the
     # previous batch's stage B (DP + polish + selection, owns the
     # batcher); emission stays in order because B batches are serialized.
-    pending_a = None  # (thread, states, holderA)
-    pending_b = None  # (thread, states, holderB)
+    # Batches are numbered at flush(); each stage's thread runs under its
+    # role and its batch's number (utils/timers.py).
+    pending_a = None  # (thread, states, holderA, batch number)
+    pending_b = None  # (thread, states, holderB, batch number)
+    n_batches = 0
 
     def drain_b():
         nonlocal pending_b, done_reads
         if pending_b is None:
             return
-        t, states, holder = pending_b
-        t.join()
+        t, states, holder, n = pending_b
+        with TIMERS.span("mtr.read.wait_stage_b", batch=n):
+            t.join()
         pending_b = None
         if "error" in holder:
             if strict:
@@ -1216,54 +1256,59 @@ def run_file(
                 file=sys.stderr,
             )
             holder["results"] = [[] for _ in states]
-        for st, records in zip(states, holder["results"]):
-            for rec in records:
-                out.write(rec.format_record() + "\n")
-                if record_sink is not None:
-                    record_sink(rec)
-                if cfg.print_alignment:
-                    from mtr_tpu_torch.pretty import pretty_print_alignment
+        with TIMERS.span("mtr.read.emit", batch=n):
+            for st, records in zip(states, holder["results"]):
+                for rec in records:
+                    out.write(rec.format_record() + "\n")
+                    if record_sink is not None:
+                        record_sink(rec)
+                    if cfg.print_alignment:
+                        from mtr_tpu_torch.pretty import (
+                            pretty_print_alignment,
+                        )
 
-                    out.write("\n")
-                    pretty_print_alignment(st.org, rec, out)
-            if read_meta is not None:
-                read_meta(st.ridx, len(records))
-            done_reads += 1
-        out.flush()
-        if checkpoint:
-            with open(checkpoint, "w") as f:
-                f.write(str(done_reads + skip))
+                        out.write("\n")
+                        pretty_print_alignment(st.org, rec, out)
+                if read_meta is not None:
+                    read_meta(st.ridx, len(records))
+                done_reads += 1
+            out.flush()
+            if checkpoint:
+                with open(checkpoint, "w") as f:
+                    f.write(str(done_reads + skip))
 
     def promote_a():
         nonlocal pending_a, pending_b
         if pending_a is None:
             return
-        t, states, ha = pending_a
-        t.join()
+        t, states, ha, n = pending_a
+        with TIMERS.span("mtr.read.wait_walks", batch=n):
+            t.join()
         pending_a = None
         drain_b()
         hb: dict = {}
 
         def work_b():
-            try:
-                if "error" in ha:
-                    raise ha["error"]
-                hb["results"] = process_batch(
-                    states, batcher, cfg, queries=ha["queries"],
-                    pos_sel=ha["pos_sel"], device=device)
-            except Exception as e:  # reported or re-raised by drain_b
-                hb["error"] = e
+            with TIMERS.thread("stage_b", n):
+                try:
+                    if "error" in ha:
+                        raise ha["error"]
+                    hb["results"] = process_batch(
+                        states, batcher, cfg, queries=ha["queries"],
+                        pos_sel=ha["pos_sel"], device=device)
+                except Exception as e:  # reported or re-raised by drain_b
+                    hb["error"] = e
 
         t2 = threading.Thread(target=work_b)
         t2.start()
-        pending_b = (t2, states, hb)
+        pending_b = (t2, states, hb, n)
 
     # adaptive wave pruning from the previous batch's walk time vs
     # host-idle-on-device wait (waves_policy); output is identical
     adapt = {"walk_s": None, "on": False}
 
     def flush():
-        nonlocal batch, pending_a
+        nonlocal batch, pending_a, n_batches
         if not batch:
             return
         promote_a()
@@ -1273,52 +1318,68 @@ def run_file(
         states = batch
         batch = []
         ha: dict = {}
+        n_batches += 1
+        n = n_batches
+        TIMERS.count("batches")
+        TIMERS.set_batch(n + 1)  # the reader fills the next batch
 
         def work_a():
-            try:
-                ha["pos_sel"] = wave1_positions(
-                    states, cfg, force=adapt["on"])
-                _t0 = time.time()
-                ha["queries"] = walk_batch(states, cfg, ha["pos_sel"], device)
-                adapt["walk_s"] = time.time() - _t0
-            except Exception as e:  # re-raised by work_b
-                ha["error"] = e
+            with TIMERS.thread("walks", n):
+                try:
+                    ha["pos_sel"] = wave1_positions(
+                        states, cfg, force=adapt["on"])
+                    # the walk thread alone adds to "period.walks"
+                    walked = TIMERS.seconds("period.walks")
+                    ha["queries"] = walk_batch(states, cfg, ha["pos_sel"],
+                                               device)
+                    adapt["walk_s"] = TIMERS.seconds("period.walks") - walked
+                except Exception as e:  # re-raised by work_b
+                    ha["error"] = e
 
         t = threading.Thread(target=work_a)
         t.start()
-        pending_a = (t, states, ha)
+        pending_a = (t, states, ha, n)
 
     min_rsl = 100
     own = 0
     batch_bases = 0
+    reads = enumerate(iter_fasta(path, cfg.max_input_length))
     try:
-        for ridx, read in enumerate(iter_fasta(path, cfg.max_input_length)):
-            # keep arena reuse semantics even when skipping
-            arena.load_read(read.codes)
-            if read_filter is not None and not read_filter(ridx):
-                continue
-            own += 1
-            if own <= skip:
-                continue
-            L = read.length
-            org_eff = arena.org_input[: L + 1].copy()
-            rsl = min_rsl if L < min_rsl * 10 else L // 10
-            with TIMERS.section("range"):
-                # the reader thread's DI shares the card with stage B's DP
-                di, di_end, di_w = fill_directional_index_with_end(
-                    arena, L, rsl, manhattan=cfg.manhattan_distance,
-                    di_compute_k=(di_compute_k
-                                  if L >= cfg.device_di_threshold else None),
-                    use_native=cfg.use_native,
-                )
-            batch.append(ReadState(read, org_eff, di, di_end, di_w, ridx))
-            batch_bases += L
-            if (len(batch) >= cfg.reads_per_batch
-                    or batch_bases >= cfg.bases_per_batch):
-                flush()
-                batch_bases = 0
-        flush()
-        promote_a()
-        drain_b()
+        with TIMERS.thread("reader", 1):
+            while True:
+                with TIMERS.span("mtr.read.input"):
+                    item = next(reads, None)
+                    if item is not None:
+                        # keep arena reuse semantics even when skipping
+                        arena.load_read(item[1].codes)
+                if item is None:
+                    break
+                ridx, read = item
+                if read_filter is not None and not read_filter(ridx):
+                    continue
+                own += 1
+                if own <= skip:
+                    continue
+                L = read.length
+                org_eff = arena.org_input[: L + 1].copy()
+                rsl = min_rsl if L < min_rsl * 10 else L // 10
+                with TIMERS.span("mtr.read.di", "range"):
+                    # the reader thread's DI shares the card with stage B's
+                    # DP
+                    di, di_end, di_w = fill_directional_index_with_end(
+                        arena, L, rsl, manhattan=cfg.manhattan_distance,
+                        di_compute_k=(di_compute_k if
+                                      L >= cfg.device_di_threshold else None),
+                        use_native=cfg.use_native,
+                    )
+                batch.append(ReadState(read, org_eff, di, di_end, di_w, ridx))
+                batch_bases += L
+                if (len(batch) >= cfg.reads_per_batch
+                        or batch_bases >= cfg.bases_per_batch):
+                    flush()
+                    batch_bases = 0
+            flush()
+            promote_a()
+            drain_b()
     finally:
         gc.set_threshold(*_gc_thresh)

@@ -190,11 +190,11 @@ def test_dbg_walk_cpu_tensors_run_plain():
     ridx, qs, qe, k = as_arrays(queries)
     job = [torch.from_numpy(a.astype(np.int32)) for a in
            (tq, node0, is_fwd, k[tq], np.minimum(500, (qe - qs)[tq] // 5))]
-    launches = td.LAUNCHES
+    launches = TIMERS.counters["launch.dbg_walk"]
     for g, w in zip(td.dbg_walk(sv, adj, *job),
                     td.stage_b_plain(sv, adj, *job)):
         assert torch.equal(g, w)
-    assert td.LAUNCHES == launches
+    assert TIMERS.counters["launch.dbg_walk"] == launches
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
         td.dbg_walk(sv.to("meta"), adj, *job)
 

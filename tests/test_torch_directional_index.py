@@ -21,6 +21,7 @@ from mtr_tpu.oracle.directional_index import (
     sliding_l1,
 )
 from mtr_tpu_torch.ops import directional_index as di
+from mtr_tpu_torch.utils.timers import TIMERS
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 CPU = torch.device("cpu")
@@ -97,6 +98,10 @@ def _one_pass(plug_k):
                                                  rsl)[0]
 
 
+def di_passes():
+    return sum(TIMERS.counters[c] for c in di.PASS_COUNTERS)
+
+
 @pytest.mark.parametrize("name,picks,manhattan", [
     ("multi20_100x10", [0, 7, 19], True),
     ("multitr_gen_2_5_10_20", None, True),
@@ -108,14 +113,14 @@ def test_full_di_ranges_match_host(name, picks, manhattan):
     form (in mtr_tpu's sweep) against the native host pass
     (di_compute=None)."""
     plug_k = di.make_di_compute_k(CPU, manhattan)
-    before = di.CALLS
+    before = di_passes()
     for read in _reads(name, picks):
         want = _ranges(read, manhattan)
         for got in (_ranges(read, manhattan, _one_pass(plug_k)),
                     _port_ranges(read, manhattan, di_compute_k=plug_k)):
             for a, b in zip(got, want):
                 np.testing.assert_array_equal(a, b)
-    assert di.CALLS > before
+    assert di_passes() > before
 
 
 @pytest.mark.parametrize("manhattan", [True, False])

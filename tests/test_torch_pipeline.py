@@ -19,7 +19,7 @@ from mtr_tpu_torch import pipeline as tp
 from mtr_tpu_torch.config import MTRConfig
 from mtr_tpu_torch.pipeline import DPJob, HostDPBatcher
 from mtr_tpu_torch.utils.timers import TIMERS
-from mtr_tpu_torch.ops import dbg_device, directional_index, wrap_dp_resident
+from mtr_tpu_torch.ops import directional_index, wrap_dp_resident
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -31,6 +31,10 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def di_passes():
+    return sum(TIMERS.counters[c] for c in directional_index.PASS_COUNTERS)
 
 
 def _golden(name):
@@ -218,7 +222,7 @@ def test_device_run_file_matches_golden(monkeypatch):
     monkeypatch.setattr(tp, "wrap_dp_consensus",
                         lambda *a: spy(*a[:4], a[5]))
     picks = {1}
-    di_before = directional_index.CALLS
+    di_before = di_passes()
     batcher = tp.TorchDPBatcher(torch.device("cpu"))
     got = _run("multi20_100x10",
                MTRConfig(backend="device", use_device_walks=False,
@@ -226,7 +230,7 @@ def test_device_run_file_matches_golden(monkeypatch):
                batcher=batcher, read_filter=picks.__contains__)
     assert got == _golden_lines("multi20_100x10", {str(r) for r in picks})
     assert cons and batcher.cons_cells > 0 and batcher.cells > 0
-    assert directional_index.CALLS > di_before
+    assert di_passes() > di_before
 
 
 def test_device_backend_refuses_device_walks(monkeypatch):
@@ -243,17 +247,16 @@ def test_device_backend_refuses_device_walks(monkeypatch):
     monkeypatch.setattr(tp.native, "dbg_walk_batch2",
                         lambda *a, **k: native_walks.append(len(a[2]))
                         or real_native(*a, **k))
-    stage_a = dbg_device.STAGE_A_CALLS
     before = dict(TIMERS.counters)
     got = _run("multitr_gen_2_5_10_20", MTRConfig(backend="device"),
                batcher=tp.TorchDPBatcher(torch.device("cpu")))
     assert got == _golden("multitr_gen_2_5_10_20")
     assert calls and {d.type for d in calls} == {"cpu"}
-    assert dbg_device.STAGE_A_CALLS > stage_a
 
     def grew(key):
         return TIMERS.counters[key] - before.get(key, 0)
 
+    assert grew("stage_a_calls") > 0
     assert grew("walk_jobs") > 0
     # the one host-route query of this set goes to the native engine
     assert sum(native_walks) == grew("walk_fallback_queries")
@@ -390,7 +393,7 @@ os.unlink(f.name)
 # torch
 import os, random, tempfile
 import torch
-from mtr_tpu_torch.ops import dbg_device, directional_index
+from mtr_tpu_torch.ops import directional_index
 rnd = random.Random(5)
 flank = lambda n: "".join(rnd.choice("ACGT") for _ in range(n))
 unit = flank(23)
@@ -407,7 +410,9 @@ for cfg, batcher in (
     outs.append(out.getvalue())
 os.unlink(f.name)
 assert outs[0] == outs[1] and outs[0], outs
-assert directional_index.CALLS > 0 and dbg_device.STAGE_A_CALLS > 0
+from mtr_tpu_torch.utils.timers import TIMERS
+assert sum(TIMERS.counters[c] for c in directional_index.PASS_COUNTERS) > 0
+assert TIMERS.counters["stage_a_calls"] > 0
 from mtr_tpu_torch.ops.wrap_dp_consensus import wrap_dp_consensus
 fused, best = wrap_dp_consensus(
     torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], dtype=torch.int8),

@@ -15,6 +15,7 @@ from mtr_tpu_torch.ops import directional_index as di_ops
 from mtr_tpu_torch.oracle.directional_index import sliding_l1
 from mtr_tpu_torch.parallel.mesh import make_mesh
 from mtr_tpu_torch.testutil.rand_seq import write_fasta
+from mtr_tpu_torch.utils.timers import TIMERS
 
 K = 3
 N_VALS, N_OUT = 20000, 17000
@@ -22,6 +23,15 @@ N_VALS, N_OUT = 20000, 17000
 
 def cpu_mesh(n):
     return make_mesh(devices=["cpu"] * n)
+
+
+def di_passes():
+    return sum(TIMERS.counters[c] for c in di_ops.PASS_COUNTERS)
+
+
+def launches():
+    return {k: TIMERS.counters[k] for k in
+            ("launch.di_sliding_l1", "launch.di_pearson_moments")}
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +108,7 @@ def test_pipeline_uses_sharded_di_and_matches_host(monkeypatch, tmp_path):
     cfg = dataclasses.replace(
         MTRConfig(backend="device", use_device_walks=False),
         device_di_threshold=8192)
-    di_ops.CALLS = di_ops.SHARDED_CALLS = 0
+    passes, sharded = di_passes(), TIMERS.counters["di_sharded_passes"]
     dev_out = io.StringIO()
     tp.run_file(fa, cfg, dev_out,
                 batcher=tp.ShardedTorchDPBatcher(cpu_mesh(4)))
@@ -106,7 +116,8 @@ def test_pipeline_uses_sharded_di_and_matches_host(monkeypatch, tmp_path):
     assert host_out.getvalue().strip(), "no records produced"
     assert calls, "the sharded DI stencil never engaged"
     assert all(size == 4 for _, size in calls)
-    assert di_ops.SHARDED_CALLS == di_ops.CALLS == len(calls)
+    assert (TIMERS.counters["di_sharded_passes"] - sharded
+            == di_passes() - passes == len(calls))
 
     # Pearson stays on one device, and so does a mesh of one slot (a
     # short read past a threshold of 100 bases shows the routing)
@@ -119,11 +130,11 @@ def test_pipeline_uses_sharded_di_and_matches_host(monkeypatch, tmp_path):
     calls.clear()
     for cfg_i, n in ((dataclasses.replace(cfg, manhattan_distance=False), 2),
                      (cfg, 1), (cfg, 2)):
-        before = di_ops.CALLS
+        before = di_passes()
         out = io.StringIO()
         tp.run_file(small, cfg_i, out,
                     batcher=tp.ShardedTorchDPBatcher(cpu_mesh(n)))
-        assert di_ops.CALLS > before
+        assert di_passes() > before
         assert bool(calls) == (cfg_i is cfg and n == 2)
         if cfg_i is cfg:
             assert out.getvalue() == host_small.getvalue()
@@ -138,12 +149,12 @@ def test_sliding_l1_sharded_reads_exactly_the_pass(n_slots, w, n_out):
     oracle, and no kernel launched on CPU slots."""
     vals = np.random.default_rng(w).integers(0, 1024, n_out + 2 * w - 1)
     vals = vals.astype(np.int32)
-    before = dict(di_ops.KERNEL_LAUNCHES)
+    before = launches()
     got = di_ops.sliding_l1_sharded(vals, w, n_out, cpu_mesh(n_slots), 5)
     assert got.dtype == np.int64 and got.shape == (n_out,)
     np.testing.assert_array_equal(got, sliding_l1(vals, w, n_out,
                                                   use_native=False))
-    assert di_ops.KERNEL_LAUNCHES == before
+    assert launches() == before
 
 
 @pytest.mark.parametrize("cut,reach", [(2925, [False, False, True]),

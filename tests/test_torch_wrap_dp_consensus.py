@@ -23,6 +23,7 @@ from mtr_tpu_torch.ops.wrap_dp_consensus import (
     wrap_dp_fill_plain,
 )
 from mtr_tpu_torch.pipeline import _factor as factor_of
+from mtr_tpu_torch.utils.timers import TIMERS
 from tests.test_wrap_dp_pallas import build_batch
 
 SCHEMES = ((1, 1, 3), (1, 3, 1), (5, 1, 1))
@@ -164,11 +165,12 @@ def test_resident_op_equals_jax_and_host(scheme, u_pad):
     factor = _factor(scheme)
     b = scal.shape[0]
     r_pad = int(scal[:, 0].max())
-    before = op.LAUNCHES
+    before = TIMERS.counters["launch.wrap_dp_consensus"]
     got, best = wrap_dp_consensus(_t(flat), _t(starts), _t(scal), _t(units),
                                   u_pad, factor)
     got = got.numpy()
-    assert op.LAUNCHES == before  # CPU tensors: the plain path
+    # CPU tensors: the plain path
+    assert TIMERS.counters["launch.wrap_dp_consensus"] == before
     # JAX: the flat carries r_pad of slack (dynamic_slice clamps)
     slack = np.concatenate([flat, np.zeros(r_pad, np.int8)])
     want = np.asarray(get_wrap_dp_consensus_resident(b, u_pad, r_pad, factor)(

@@ -14,9 +14,9 @@ from mtr_tpu.ops.wrap_dp_fused2 import get_wrap_dp_fused2
 from mtr_tpu.ops.wrap_dp_fused2w import get_wrap_dp_fused2w
 from mtr_tpu.ops.wrap_dp_resident import _gather_segments
 from mtr_tpu.ops.wrap_dp_xla import make_wrap_dp_counts_xla
-from mtr_tpu_torch.ops import wrap_dp_counts as op
 from mtr_tpu_torch.ops.wrap_dp_counts import wrap_dp_counts, wrap_dp_counts_plain
 from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
+from mtr_tpu_torch.utils.timers import TIMERS
 from tests.test_wrap_dp_fused import SCHEMES, oracle_counts, rand_jobs
 
 # columns the oracle reports: m, x, ins, del, scanned, i_final, best,
@@ -190,11 +190,11 @@ def test_resident_op_on_cpu_runs_plain(u_span):
         starts[q] = start
         scal[q, :5] = (rep_len, len(unit), *scheme)
         units[q, : len(unit)] = unit
-    before = op.LAUNCHES
+    before = TIMERS.counters["launch.wrap_dp_counts"]
     got = wrap_dp_counts(torch.from_numpy(flat), torch.from_numpy(starts),
                          torch.from_numpy(scal), torch.from_numpy(units),
                          u_span).numpy()
-    assert op.LAUNCHES == before
+    assert TIMERS.counters["launch.wrap_dp_counts"] == before
     for q, (start, rep_len, unit, scheme) in enumerate(jobs):
         rep = flat[start : start + rep_len].astype(np.int32)
         assert tuple(got[q, ORACLE_COLS]) == oracle_counts(
