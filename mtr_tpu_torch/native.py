@@ -288,12 +288,18 @@ def sliding_l1(vals: np.ndarray, w: int, n_out: int):
 
 
 def wrap_dp_batch(orgs, qss, qes, units, unit_lens, schemes, modes, n_threads=0):
-    """Host wrap-DP batch.  units: (n,500) int32; returns
-    (counts (n,7) int64, consensus (n,500,5), missing (n,500,4)).
-    Consensus/missing rows are only valid for mode-1 jobs."""
+    """Host wrap-DP batch.  orgs: each job's read (int32, contiguous), as
+    a list of arrays or as an (n,) uint64 array of their addresses (the
+    caller keeps those reads alive); units: (n,500) int32; returns
+    (counts (n,7) int64, consensus (n,500,5), missing (n,500,4)), pooled:
+    the next call overwrites them.  Consensus/missing rows are only valid
+    for mode-1 jobs."""
     lib = _load()
     n = len(orgs)
-    org_ptrs = (ct.c_void_p * n)(*[o.ctypes.data for o in orgs])
+    if isinstance(orgs, np.ndarray):
+        org_ptrs = np.ascontiguousarray(orgs, np.uint64)
+    else:
+        org_ptrs = np.fromiter((o.ctypes.data for o in orgs), np.uint64, n)
     qss = np.ascontiguousarray(qss, np.int64)
     qes = np.ascontiguousarray(qes, np.int64)
     units = np.ascontiguousarray(units, np.int32)
@@ -315,7 +321,8 @@ def wrap_dp_batch(orgs, qss, qes, units, unit_lens, schemes, modes, n_threads=0)
         consensus = np.zeros((1, 500, 5), np.int64)
         missing = np.zeros((1, 500, 4), np.int64)
     lib.mtr_wrap_dp_batch(
-        org_ptrs, _ip64(qss), _ip64(qes), _ip32(units), _ip32(unit_lens),
+        org_ptrs.ctypes.data_as(ct.POINTER(ct.c_void_p)), _ip64(qss),
+        _ip64(qes), _ip32(units), _ip32(unit_lens),
         _ip32(schemes), _ip32(modes), n,
         _ip64(counts), _ip64(consensus), _ip64(missing), _nthreads(n_threads),
     )

@@ -51,7 +51,6 @@ from mtr_tpu_torch.oracle.dbg import (
     MIN_NUM_FREQ_UNIT,
     MIN_PERIOD,
     freq_2mer_array,
-    select_dp_candidate,
     walk_candidates,
 )
 from mtr_tpu_torch.oracle.directional_index import (
@@ -104,30 +103,12 @@ def _encode_unit(s: str) -> np.ndarray:
     return a
 
 
-def dedup_jobs(jobs: list["DPJob"]) -> tuple[list["DPJob"], list[int]]:
-    """Many k values discover the SAME unit for the same range, and the
-    DP result depends only on (read segment, unit, scheme, mode) — so
-    identical jobs are computed once and fanned out.  Returns the unique
-    job list and, per original job, its index into it."""
-    uniq: dict = {}
-    uniq_jobs: list[DPJob] = []
-    remap: list[int] = []
-    for job in jobs:
-        key = (
-            id(job.org), job.qs, job.qe,
-            job.unit.tobytes(), job.scheme, job.mode,
-        )
-        idx = uniq.get(key)
-        if idx is None:
-            idx = len(uniq_jobs)
-            uniq[key] = idx
-            uniq_jobs.append(job)
-        remap.append(idx)
-    return uniq_jobs, remap
-
-
 @dataclasses.dataclass
 class DPJob:
+    """One DP job as an object: the polish phase's jobs and the tests'.  A
+    batcher's run() turns a list of them into a JobTable; its result is
+    the counts row (m, x, ins, del, scanned, i_final, max_i) or, in
+    consensus mode, the (500, 5) consensus and (500, 4) missing blocks."""
     org: np.ndarray  # effective per-read arena view (codes + stale tail)
     qs: int
     qe: int
@@ -137,7 +118,149 @@ class DPJob:
     result: object = None
 
 
-class HostDPBatcher:
+MODES = ("counts", "consensus")  # a JobTable's mode column indexes this
+
+
+@dataclasses.dataclass
+class JobTable:
+    """DP jobs as columns, one row a job: the read (its index in the list
+    the batcher's begin_batch took), the range qs..qe (the segment is
+    org[qs + 1 : qe + 2]), the unit (a row of `units`), the scheme (match
+    gain, mismatch and indel penalties) and the mode (an index into
+    MODES).  `units` holds each distinct unit's codes, -2 past its
+    end."""
+    read: np.ndarray    # (n,) int64
+    qs: np.ndarray      # (n,) int64
+    qe: np.ndarray      # (n,) int64
+    unit: np.ndarray    # (n,) int64, row of units
+    scheme: np.ndarray  # (n, 3) int32
+    mode: np.ndarray    # (n,) int32
+    units: np.ndarray   # (u, w) int32, w <= MAX_PERIOD
+    ulens: np.ndarray   # (u,) int64
+
+    def __len__(self) -> int:
+        return len(self.qs)
+
+    def take(self, rows) -> "JobTable":
+        """The jobs of `rows`, in that order, over the same unit table."""
+        return JobTable(self.read[rows], self.qs[rows], self.qe[rows],
+                        self.unit[rows], self.scheme[rows], self.mode[rows],
+                        self.units, self.ulens)
+
+    def unit_lens(self) -> np.ndarray:
+        return self.ulens[self.unit]
+
+    def cells(self) -> np.ndarray:
+        return (self.qe - self.qs + 1) * self.unit_lens()
+
+
+def unit_table(codes: np.ndarray, ulens: np.ndarray) -> tuple[np.ndarray,
+                                                              np.ndarray]:
+    """A JobTable's (units, ulens) from the distinct units' codes, end to
+    end, and their lengths."""
+    w = max(int(ulens.max(initial=0)), 1)
+    units = np.full((len(ulens), w), -2, np.int32)
+    units[np.arange(w) < ulens[:, None]] = codes
+    return units, ulens
+
+
+def first_rows(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct rows of keys (n, k) in the order they first appear:
+    (first, inv), keys[first] distinct and keys == keys[first][inv]."""
+    n = len(keys)
+    # row order breaks ties: each run of equal rows starts at its first
+    order = np.lexsort((np.arange(n), *keys.T[::-1]))
+    sk = keys[order]
+    new = np.ones(n, bool)
+    new[1:] = (sk[1:] != sk[:-1]).any(axis=1)
+    first = order[new]
+    by_first = np.argsort(first)
+    rank = np.empty(len(first), np.int64)
+    rank[by_first] = np.arange(len(first))
+    inv = np.empty(n, np.int64)
+    inv[order] = rank[np.cumsum(new) - 1]
+    return first[by_first], inv
+
+
+def _jobs_table(jobs: list[DPJob], index: dict,
+                dedup: bool) -> tuple[JobTable, np.ndarray]:
+    """A job list as a JobTable over the batch's reads (index: id(org) ->
+    read index) and, per job, its row.  Jobs equal in
+    (read, range, unit, scheme, mode) share a row unless dedup is False:
+    many k values discover the same unit for the same range, and the DP
+    result depends only on that key."""
+    n = len(jobs)
+    ids: dict = {}
+    codes: list = []
+    cols = np.empty((n, 8), np.int64)  # read, qs, qe, unit, scheme, mode
+    for i, job in enumerate(jobs):
+        u = ids.setdefault(job.unit.tobytes(), len(ids))
+        if u == len(codes):
+            codes.append(job.unit)
+        cols[i] = (index[id(job.org)], job.qs, job.qe, u, *job.scheme,
+                   MODES.index(job.mode))
+    if dedup:
+        first, inv = first_rows(cols)
+        cols = cols[first]
+    else:
+        inv = np.arange(n)
+    units, ulens = unit_table(
+        np.concatenate(codes),
+        np.fromiter(map(len, codes), np.int64, len(codes)))
+    return JobTable(cols[:, 0], cols[:, 1], cols[:, 2], cols[:, 3],
+                    cols[:, 4:7].astype(np.int32),
+                    cols[:, 7].astype(np.int32), units, ulens), inv
+
+
+def _merge_legs(t: JobTable, legs) -> tuple[np.ndarray, tuple | None]:
+    """One run_table result from the results of disjoint row sets of t:
+    legs is [(rows, (counts, cons)), ...], a leg's cons rows those of its
+    consensus jobs in the order of rows."""
+    counts = np.zeros((len(t), 7), np.int64)
+    is_cons = t.mode == 1
+    cons = None
+    if is_cons.any():
+        rank = np.cumsum(is_cons) - 1  # a consensus row's place in cons
+        n_cons = int(is_cons.sum())
+        cons = (np.zeros((n_cons, MAX_PERIOD, 5), np.int64),
+                np.zeros((n_cons, MAX_PERIOD, 4), np.int64))
+    for rows, (leg_counts, leg_cons) in legs:
+        counts[rows] = leg_counts
+        if leg_cons is not None:
+            at = rank[rows[is_cons[rows]]]
+            cons[0][at] = leg_cons[0]
+            cons[1][at] = leg_cons[1]
+    return counts, cons
+
+
+class _JobListBatcher:
+    """A batcher's job-list entry point, run(jobs), on its table entry
+    point, run_table(table) -> (counts, cons): counts (n, 7) int64, one
+    row a job (m, x, ins, del, scanned, i_final, max_i; zeros for a
+    consensus job), cons None or the consensus and missing blocks of the
+    consensus jobs in table order ((c, 500, 5), (c, 500, 4)).  A job's
+    read is one of the batch's (begin_batch); a job list run with no batch
+    begun makes its own reads the batch."""
+
+    _index: dict = {}  # id(org) -> read index, set by begin_batch
+
+    def run(self, jobs: list[DPJob], deduped: bool = False) -> None:
+        if not jobs:
+            return
+        if not self._index:
+            self.begin_batch(list({id(j.org): j.org for j in jobs}.values()))
+        table, inv = _jobs_table(jobs, self._index, not deduped)
+        counts, cons = self.run_table(table)
+        rank = np.cumsum(table.mode == 1) - 1
+        rows = counts.tolist()
+        for job, r in zip(jobs, inv.tolist()):
+            if job.mode == "counts":
+                job.result = tuple(rows[r])
+            else:
+                job.result = (cons[0][rank[r]], cons[1][rank[r]])
+
+
+class HostDPBatcher(_JobListBatcher):
     """Native C++ wrap-DP engine (threaded scalar fills) with the same job
     interface as TorchDPBatcher: the host backend, the hybrid's host leg,
     and a cross-check.  The JAX package's degrade to the Python oracle
@@ -145,63 +268,47 @@ class HostDPBatcher:
     raises (native._load)."""
 
     def begin_batch(self, orgs: list[np.ndarray]) -> None:
-        pass  # host engine reads segments in place
+        # the engine reads segments in place, through each read's address
+        self._orgs = list(orgs)  # the reads as given, kept alive
+        self._reads = [np.ascontiguousarray(o, np.int32) for o in orgs]
+        self._index = {id(o): i for i, o in enumerate(orgs)}
+        self._ptrs = np.fromiter((r.ctypes.data for r in self._reads),
+                                 np.uint64, len(self._reads))
 
-    def run(self, jobs: list[DPJob], deduped: bool = False) -> None:
-        if deduped:
-            self._run(jobs)
-            return
-        uniq_jobs, remap = dedup_jobs(jobs)
-        self._run(uniq_jobs)
-        if len(uniq_jobs) != len(jobs):
-            for job, ui in zip(jobs, remap):
-                job.result = uniq_jobs[ui].result
-
-    def _run(self, jobs: list[DPJob]) -> None:
-        if not jobs:
-            return
-        n = len(jobs)
+    def run_table(self, t: JobTable) -> tuple[np.ndarray, tuple | None]:
+        n = len(t)
+        if not n:
+            return np.zeros((0, 7), np.int64), None
         # pooled: the C side reads only units[q, :ulens[q]], so stale data
         # beyond each unit is never seen
-        units = native.POOL.get("dpb_units", (n, 500), np.int32)
-        ulens = np.zeros(n, np.int32)
-        schemes = np.zeros((n, 3), np.int32)
-        modes = np.zeros(n, np.int32)
-        orgs, qss, qes = [], [], []
-        for q, job in enumerate(jobs):
-            units[q, : len(job.unit)] = job.unit
-            ulens[q] = len(job.unit)
-            schemes[q] = job.scheme
-            modes[q] = 0 if job.mode == "counts" else 1
-            orgs.append(np.ascontiguousarray(job.org, np.int32))
-            qss.append(job.qs)
-            qes.append(job.qe)
+        units = native.POOL.get("dpb_units", (n, MAX_PERIOD), np.int32)
+        np.take(t.units, t.unit, axis=0, out=units[:, : t.units.shape[1]],
+                mode="clip")
         with TIMERS.span("mtr.dp.host", "dp_fill"):
             counts, cons, miss = native.wrap_dp_batch(
-                orgs, qss, qes, units, ulens, schemes, modes)
+                self._ptrs[t.read], t.qs, t.qe, units, t.unit_lens(),
+                t.scheme, t.mode)
         TIMERS.count("dp_jobs", n)
-        clist = counts[:n].tolist()  # one C-level conversion for all rows
-        for q, job in enumerate(jobs):
-            if job.mode == "counts":
-                m, x, ins, dele, scanned, i_final, max_i = clist[q]
-                job.result = ((m, x, ins, dele, scanned), i_final, max_i)
-            else:
-                job.result = (cons[q], miss[q])
+        is_cons = t.mode == 1
+        return counts.copy(), ((cons[is_cons], miss[is_cons])
+                               if is_cons.any() else None)
 
 
-def apply_counts(rr: RepeatRecord, job: DPJob) -> None:
-    """Fill record fields from a counts-mode DP result
-    (wrap_around_DP.c:337-350)."""
-    (n_m, n_x, n_i, n_d, scanned), i_final, max_i = job.result
-    rr.rep_start = job.qs + i_final + 1
-    rr.rep_end = job.qs + max_i
+def apply_counts(rr: RepeatRecord, qs: int, unit_len: int, scheme,
+                 row) -> None:
+    """Fill record fields from a counts-mode DP result, the counts row
+    (m, x, ins, del, scanned, i_final, max_i) of a job over qs.. with a
+    unit of unit_len (wrap_around_DP.c:337-350)."""
+    n_m, n_x, n_i, n_d, scanned, i_final, max_i = row
+    rr.rep_start = qs + i_final + 1
+    rr.rep_end = qs + max_i
     rr.repeat_len = max_i - i_final
-    rr.num_freq_unit = scanned // len(job.unit) if len(job.unit) else 0
+    rr.num_freq_unit = scanned // unit_len if unit_len else 0
     rr.num_matches = n_m
     rr.num_mismatches = n_x
     rr.num_insertions = n_i
     rr.num_deletions = n_d
-    rr.match_gain, rr.mismatch_penalty, rr.indel_penalty = job.scheme
+    rr.match_gain, rr.mismatch_penalty, rr.indel_penalty = scheme
 
 
 @dataclasses.dataclass
@@ -213,7 +320,7 @@ class RangeQuery:
     k: int
     candidates: list = dataclasses.field(default_factory=list)
     found: int = 0
-    result: RepeatRecord | None = None  # post-selection record (or cleared)
+    result: RepeatRecord | None = None  # the selected record, or None
 
 
 @dataclasses.dataclass
@@ -227,71 +334,99 @@ class ReadState:
 
 
 
-def _wrap_dp_schemes(batcher, queries_with_candidates) -> None:
-    """Phase 3+4a: batched wrap_around_DP (both schemes) for every walk
-    candidate; per candidate keep the higher-ratio scheme
-    (wrap_around_DP.c:357-429).
+SCHEMES = ((1, 1, 3), (1, 3, 1))  # a candidate's two jobs, in this order
 
-    Candidates are deduplicated by (read, range, unit) BEFORE job
-    construction — different k values routinely discover the same unit,
-    and the DP + scheme selection depend only on this key — so each
-    unique candidate builds one job pair and runs one selection."""
-    dpjobs: list[DPJob] = []
-    uniq: dict = {}           # key -> index into selections
-    sel_jobs: list = []       # per unique key: (job113, job131)
-    meta: list = []           # per candidate: (cand, uniq_idx)
-    for q, org_arr in queries_with_candidates:
+
+@dataclasses.dataclass
+class SchemeJobs:
+    """A wave's walk candidates as one job table: a job pair a distinct
+    (read, range, unit), SCHEMES[0] then SCHEMES[1], in the order the
+    candidates first show them (query order, then candidate order)."""
+    jobs: JobTable
+    cand_query: np.ndarray  # (c,) int64: a candidate's query
+    cand_pos: np.ndarray    # (c,) int64: its place in the query's list
+    cand_pair: np.ndarray   # (c,) int64: its job pair (jobs rows 2p, 2p+1)
+
+
+def scheme_jobs(queries: list) -> SchemeJobs:
+    """The job table of the queries' candidates.  Only the unit of each
+    candidate is read, and interned; everything else is per query."""
+    ids: dict = {}
+    keys: list = []  # a candidate's (read, qs, qe, unit id)
+    cand_query: list = []
+    for qi, q in enumerate(queries):
+        r, qs, qe = q.read_idx, q.qs, q.qe
         for cand in q.candidates:
-            unit = _encode_unit(cand.string)
-            key = (id(org_arr), q.qs, q.qe, cand.string)
-            ui = uniq.get(key)
-            if ui is None:
-                ui = len(sel_jobs)
-                uniq[key] = ui
-                j113 = DPJob(org_arr, q.qs, q.qe, unit, (1, 1, 3))
-                j131 = DPJob(org_arr, q.qs, q.qe, unit, (1, 3, 1))
-                dpjobs.append(j113)
-                dpjobs.append(j131)
-                sel_jobs.append((j113, j131))
-            meta.append((cand, ui))
-    # dpjobs is already unique under the batcher's dedup key (one job
-    # pair per (org, range, unit); schemes differ within a pair)
-    batcher.run(dpjobs, deduped=True)
-    # one scheme selection per unique candidate, vectorized: the scalar
-    # loop's semantics (wrap_around_DP.c:357-429 via ratio_less) reduce
-    # to: take (1,3,1) iff its ratio is non-NaN and either (1,1,3)'s is
-    # NaN or strictly smaller; else (1,1,3) if non-NaN; else neither.
-    n_sel = len(sel_jobs)
-    if n_sel:
-        cnt = np.empty((2 * n_sel, 2), np.int64)
-        for idx, job in enumerate(dpjobs):
-            (n_m, n_x, n_i, n_d, _scanned), _, _ = job.result
-            cnt[idx, 0] = n_m
-            cnt[idx, 1] = n_m + n_x + n_i + n_d
-        with np.errstate(invalid="ignore"):
-            # denom == 0 implies m == 0 (counts are nonnegative), so the
-            # only singular case is 0/0 -> NaN, exactly C float math
-            r = cnt[:, 0].astype(np.float32) / cnt[:, 1].astype(np.float32)
-        r113, r131 = r[0::2], r[1::2]
-        nan113, nan131 = np.isnan(r113), np.isnan(r131)
-        pick131 = ~nan131 & (nan113 | (r131 > r113))
-        pick113 = ~pick131 & ~nan113
-        rs = r.astype(np.float64)
-        ms = cnt[:, 0].tolist()
-        ds = cnt[:, 1].tolist()
-    empty = RepeatRecord()
-    for cand, ui in meta:
-        if pick131[ui]:
-            best_job, ji = sel_jobs[ui][1], 2 * ui + 1
-        elif pick113[ui]:
-            best_job, ji = sel_jobs[ui][0], 2 * ui
-        else:
-            _assign(cand, empty)
-            continue
-        # apply_counts touches exactly the fields set_rr would copy
-        # from a counts-updated clone, so write cand directly
-        apply_counts(cand, best_job)
-        cand._rk = (ds[ji], ms[ji], float(rs[ji]))  # pre-fill ratio cache
+            keys.append((r, qs, qe, ids.setdefault(cand.string, len(ids))))
+            cand_query.append(qi)
+    keys = np.array(keys, np.int64).reshape(-1, 4)
+    first, pair = first_rows(keys)
+    k = np.repeat(keys[first], 2, axis=0)
+    n = len(k)
+    units, ulens = unit_table(encode_bases("".join(ids)),
+                              np.fromiter(map(len, ids), np.int64, len(ids)))
+    TIMERS.count("scheme_candidates", len(keys))
+    TIMERS.count("scheme_pairs", len(first))
+    cand_query = np.array(cand_query, np.int64)
+    cand_pos = np.arange(len(cand_query)) - np.searchsorted(cand_query,
+                                                            cand_query)
+    jobs = JobTable(k[:, 0], k[:, 1], k[:, 2], k[:, 3],
+                    np.tile(np.array(SCHEMES, np.int32), (n // 2, 1)),
+                    np.zeros(n, np.int32), units, ulens)
+    return SchemeJobs(jobs, cand_query, cand_pos, pair)
+
+
+def _ratios(counts: np.ndarray) -> np.ndarray:
+    """Each counts row's match ratio, (float)m / (m + x + ins + del) in
+    float32 as C computes it: the denominator is 0 only where m is, so the
+    one singular case is 0/0, NaN."""
+    with np.errstate(invalid="ignore"):
+        return (counts[:, 0].astype(np.float32)
+                / counts[:, :4].sum(axis=1).astype(np.float32))
+
+
+def select_schemes(counts: np.ndarray) -> np.ndarray:
+    """Per job pair (rows 2p, 2p+1 of counts), the row of the scheme a
+    candidate keeps, or -1 for neither (wrap_around_DP.c:357-429).  The
+    scalar loop over ratio_less reduces to: SCHEMES[1] iff its ratio is
+    not NaN and SCHEMES[0]'s is NaN or strictly smaller; else SCHEMES[0]
+    if its ratio is not NaN; else neither."""
+    r = _ratios(counts)
+    r0, r1 = r[0::2], r[1::2]
+    nan0, nan1 = np.isnan(r0), np.isnan(r1)
+    pick1 = ~nan1 & (nan0 | (r1 > r0))
+    pick0 = ~pick1 & ~nan0
+    base = 2 * np.arange(len(r0))
+    return np.where(pick1, base + 1, np.where(pick0, base, -1))
+
+
+def select_directions(sj: SchemeJobs, counts: np.ndarray, pick: np.ndarray,
+                      n_queries: int, min_match_ratio: float) -> np.ndarray:
+    """Per query, the candidate select_dp_candidate keeps, or -1
+    (consensus.c:562-578): the first candidate, in the query's order, whose
+    kept scheme's ratio is strictly above every earlier survivor's (so the
+    first wins a tie), at least min_match_ratio, with more than
+    MIN_NUM_FREQ_UNIT units scanned and MIN_PERIOD <= period < MAX_PERIOD.
+    A candidate with no kept scheme never survives."""
+    win = np.full(n_queries, -1, np.int64)
+    if not len(sj.cand_pair):
+        return win
+    job = pick[sj.cand_pair]
+    has = job >= 0
+    job = np.where(has, job, 0)
+    ratio = _ratios(counts).astype(np.float64)[job]
+    period = sj.jobs.unit_lens()[job]
+    ok = (has & (min_match_ratio <= ratio)
+          & (counts[job, 4] // period > MIN_NUM_FREQ_UNIT)
+          & (MIN_PERIOD <= period) & (period < MAX_PERIOD))
+    best = np.full(n_queries, -1.0)
+    for pos in range(int(sj.cand_pos.max()) + 1):
+        c = np.flatnonzero(ok & (sj.cand_pos == pos))
+        q = sj.cand_query[c]
+        up = best[q] < ratio[c]
+        best[q[up]] = ratio[c[up]]
+        win[q[up]] = c[up]
+    return win
 
 
 def _polish_phase(batcher, states, polish_set, cfg) -> None:
@@ -340,7 +475,7 @@ def _polish_phase(batcher, states, polish_set, cfg) -> None:
                     score_meta.append(((q, rr, base_ratio), tmp, sj))
             batcher.run(scorejobs)
             for (q, rr, base_ratio), tmp, sj in score_meta:
-                apply_counts(tmp, sj)
+                apply_counts(tmp, sj.qs, len(sj.unit), sj.scheme, sj.result)
                 if ratio_less(base_ratio, tmp.match_ratio()):
                     _assign(rr, tmp)
 
@@ -466,33 +601,55 @@ def _process_wave(states, batcher, cfg, queries, range_result) -> None:
     selection.  Merges per-range winners into range_result (keyed
     (read_idx, qs, qe); value None = computed but no qualifying
     record)."""
-    # phase 3+4a: scheme selection for every candidate
+    # phase 3+4a: both schemes' DP for every distinct candidate, and the
+    # scheme each keeps
     with TIMERS.span("mtr.stage_b.schemes"):
-        _wrap_dp_schemes(batcher,
-                         [(q, states[q.read_idx].org) for q in queries])
+        sj = scheme_jobs(queries)
+        if len(sj.jobs):
+            counts, _ = batcher.run_table(sj.jobs)
+            pick = select_schemes(counts)
 
     # phase 4b: direction selection + gates -> per-query result; build
-    # polish set (queries without candidates were never materialized =
-    # cleared records)
+    # polish set.  A query without a winner gets None: the empty record
+    # the reference clears it to never passes the k sweep's filters
     with TIMERS.span("mtr.stage_b.select"):
         polish_set = []
         for q in queries:
-            if not q.candidates or q.found == 0:
-                q.result = None
-                continue
-            st = states[q.read_idx]
-            rr = RepeatRecord()
-            rr.read_id = st.read.read_id
-            rr.input_len = st.read.length
-            rr.kmer = q.k
-            select_dp_candidate(rr, q.candidates, cfg.min_match_ratio)
-            if rr.rep_period * (q.qe - q.qs + 1) > cfg.wrap_dp_size:
-                q.result = None
-                continue
-            q.result = rr
-            coverage = rr.repeat_len // rr.rep_period
-            if 5 <= coverage <= 20 and rr.rep_period > 5:
-                polish_set.append((q, rr))
+            q.result = None
+        if len(sj.jobs):
+            win = select_directions(sj, counts, pick, len(queries),
+                                    cfg.min_match_ratio)
+            qi = np.flatnonzero(win >= 0)
+            c = win[qi]
+            job = pick[sj.cand_pair[c]]
+            period = sj.jobs.unit_lens()[job]
+            # the wrap_dp_size gate on the winner's period (its unit's
+            # length) and the query's width
+            width = np.array([queries[i].qe - queries[i].qs + 1
+                              for i in qi.tolist()], np.int64)
+            keep = period * width <= cfg.wrap_dp_size
+            qi, c, job, period = qi[keep], c[keep], job[keep], period[keep]
+            for i, pos, j, row, ratio, unit_len in zip(
+                    qi.tolist(), sj.cand_pos[c].tolist(), job.tolist(),
+                    counts[job].tolist(),
+                    _ratios(counts[job]).astype(np.float64).tolist(),
+                    period.tolist()):
+                q = queries[i]
+                if q.found == 0:
+                    continue
+                cand = q.candidates[pos]
+                apply_counts(cand, q.qs, unit_len, SCHEMES[j % 2], row)
+                st = states[q.read_idx]
+                rr = RepeatRecord()
+                rr.read_id = st.read.read_id
+                rr.input_len = st.read.length
+                rr.kmer = q.k
+                _assign(rr, cand)
+                rr._rk = (sum(row[:4]), row[0], ratio)  # match_ratio's cache
+                q.result = rr
+                coverage = rr.repeat_len // rr.rep_period
+                if 5 <= coverage <= 20 and rr.rep_period > 5:
+                    polish_set.append((q, rr))
 
     # phase 5: polish + revision rounds
     with TIMERS.span("mtr.stage_b.polish", "polish"):
@@ -527,10 +684,13 @@ MAX_WAVES = 6
 
 
 def _factor(schemes) -> int:
-    """Traceback step factor of a consensus launch (mtr_tpu/pipeline.py:
-    706-711): 1 + ceil(mg/ip) bounds a path's steps per rep row,
-    quantized to {2, TB_FACTOR}."""
-    factor = 1 + max(-(-mg // ip) for mg, _, ip in schemes)
+    """Traceback step factor of a consensus launch of (mg, mm, ip)
+    schemes, any iterable of them (mtr_tpu/pipeline.py:706-711): 1 +
+    ceil(mg/ip) bounds a path's steps per rep row, quantized to {2,
+    TB_FACTOR}."""
+    schemes = np.asarray(list(schemes), np.int64).reshape(-1, 3)
+    mg, ip = schemes[:, 0], schemes[:, 2]
+    factor = 1 + int((-(-mg // ip)).max())
     return 2 if factor <= 2 else TB_FACTOR
 
 
@@ -541,7 +701,7 @@ def _cap_parts(move_bytes: list[int]) -> list[int]:
     return cap_parts(move_bytes, MOVES_BYTES_CAP)
 
 
-class TorchDPBatcher:
+class TorchDPBatcher(_JobListBatcher):
     """DP jobs on one torch device (counterpart of
     mtr_tpu.pipeline.WrapDPBatcher).  The batch's reads are uploaded once
     (begin_batch); each run sorts its jobs longest first, launches the
@@ -558,7 +718,7 @@ class TorchDPBatcher:
         # batch's non-blocking copy may still be reading its buffer
         self._host: list = [None, None]
         self._flat: torch.Tensor | None = None
-        self._offsets: dict = {}  # id(org) -> offset into flat
+        self._base = np.zeros(0, np.int64)  # a read's offset into flat
         self.cells = 0            # DP cells computed here, counts jobs
         self.cons_cells = 0       # ... and consensus jobs
 
@@ -573,97 +733,85 @@ class TorchDPBatcher:
                               pin_memory=self.device.type == "cuda")
             self._host[k] = buf
         view = buf.numpy()
-        off: dict = {}
+        base = np.zeros(len(orgs), np.int64)
         p = 0
-        for o in orgs:
+        for i, o in enumerate(orgs):
             view[p : p + len(o)] = o
-            off[id(o)] = p
+            base[i] = p
             p += len(o)
-        self._offsets = off
+        self._index = {id(o): i for i, o in enumerate(orgs)}
+        self._base = base
         self._flat = self._upload(buf[:total])
 
     def _upload(self, flat: torch.Tensor) -> torch.Tensor:
         """The batch's flat reads on the device."""
         return flat.to(self.device, non_blocking=True, copy=True)
 
-    def run(self, jobs: list[DPJob], deduped: bool = False) -> None:
-        uniq_jobs, remap = (jobs, None) if deduped else dedup_jobs(jobs)
-        self._run(uniq_jobs)
-        if remap is not None and len(uniq_jobs) != len(jobs):
-            for job, ui in zip(jobs, remap):
-                job.result = uniq_jobs[ui].result
-
-    def _run(self, jobs: list[DPJob]) -> None:
-        if not jobs:
-            return
+    def run_table(self, t: JobTable) -> tuple[np.ndarray, tuple | None]:
         # one launch a mode for every unit width (each kernel sizes a
         # job's columns a lane itself); consensus launches cut to
         # MOVES_BYTES_CAP of move scratch
-        groups: dict = {"counts": [], "consensus": []}
-        for idx, job in enumerate(jobs):
-            groups[job.mode].append(idx)
-        parts: dict = {"counts": [], "consensus": []}
-        outs: dict = {"counts": [], "consensus": []}
-        for mode, idxs in groups.items():
-            if not idxs:
+        outs: list = []  # (mode, rows, device result)
+        for mode in range(len(MODES)):
+            rows = np.flatnonzero(t.mode == mode)
+            if not len(rows):
                 continue
             with TIMERS.span("mtr.dp.pack"):
-                u_span = u_span_for(max(len(jobs[i].unit) for i in idxs))
+                ulens = t.ulens[t.unit[rows]]
+                u_span = u_span_for(int(ulens.max()))
                 # longest-first: the longest jobs start first
-                idxs.sort(key=lambda i: jobs[i].qs - jobs[i].qe)
-                cuts = ([len(idxs)] if mode == "counts" else _cap_parts(
-                    [(jobs[i].qe - jobs[i].qs + 1) * move_row_bytes(
-                        len(jobs[i].unit)) for i in idxs]))
+                order = np.argsort(t.qs[rows] - t.qe[rows], kind="stable")
+                rows = rows[order]
+                cuts = ([len(rows)] if mode == 0 else _cap_parts(
+                    ((t.qe[rows] - t.qs[rows] + 1)
+                     * move_row_bytes(ulens[order])).tolist()))
             lo = 0
             for hi in cuts:
-                parts[mode].append(idxs[lo:hi])
-                outs[mode].append(
-                    self._dispatch(jobs, idxs[lo:hi], u_span, mode))
+                outs.append((mode, rows[lo:hi],
+                             self._dispatch(t, rows[lo:hi], u_span, mode)))
                 lo = hi
         with TIMERS.span("mtr.dp.wait", "dp_wait"):
             # one device->host copy per mode
-            res = {mode: torch.cat(o).cpu().numpy()
-                   for mode, o in outs.items() if o}
+            res = {}
+            for mode in sorted({m for m, _, _ in outs}):
+                res[mode] = torch.cat(
+                    [o for m, _, o in outs if m == mode]).cpu().numpy()
         with TIMERS.span("mtr.dp.collect"):
-            for mode, mode_parts in parts.items():
-                off = 0
-                for part in mode_parts:
-                    chunk = res[mode][off : off + len(part)]
-                    if mode == "counts":
-                        self._collect_counts(jobs, part, chunk)
-                    else:
-                        for idx, fused in zip(part, chunk):
-                            jobs[idx].result = (fused[:, :5], fused[:, 5:])
-                    off += len(part)
+            legs = []
+            for mode, fused in res.items():
+                rows = np.concatenate([r for m, r, _ in outs if m == mode])
+                if mode == 0:
+                    if not fused[:, 6].all():
+                        raise RuntimeError(
+                            "counts kernel left a job unfinished")
+                    legs.append((rows, (fused[:, [0, 1, 2, 3, 4, 5, 9]],
+                                        None)))
+                else:
+                    legs.append((rows, (np.zeros((len(rows), 7), np.int64),
+                                        (fused[:, :, :5], fused[:, :, 5:]))))
+            return _merge_legs(t, legs)
 
-    def _dispatch(self, jobs, part, u_span, mode) -> torch.Tensor:
+    def _dispatch(self, t: JobTable, part, u_span, mode) -> torch.Tensor:
         n = len(part)
         with TIMERS.span("mtr.dp.pack"):
-            qs = np.fromiter((jobs[i].qs for i in part), np.int64, n)
-            qe = np.fromiter((jobs[i].qe for i in part), np.int64, n)
-            base = np.fromiter(
-                (self._offsets[id(jobs[i].org)] for i in part), np.int64, n)
-            starts = base + qs + 1
+            qs, qe = t.qs[part], t.qe[part]
+            starts = self._base[t.read[part]] + qs + 1
             rep_len = qe - qs + 1
             scal = np.zeros((n, 8), np.int32)
             scal[:, 0] = rep_len
-            scal[:, 2:5] = [jobs[i].scheme for i in part]
+            scal[:, 1] = t.ulens[t.unit[part]]
+            scal[:, 2:5] = t.scheme[part]
             units = np.full((n, u_span), -2, np.int8)
-            by_unit: dict = defaultdict(list)
-            for row, idx in enumerate(part):
-                by_unit[jobs[idx].unit.tobytes()].append(row)
-            for rows in by_unit.values():
-                unit = jobs[part[rows[0]]].unit
-                units[np.asarray(rows), : len(unit)] = unit
-                scal[rows, 1] = len(unit)
-            factor = (_factor(jobs[i].scheme for i in part)
-                      if mode == "consensus" else 0)
+            w = min(u_span, t.units.shape[1])
+            units[:, :w] = t.units[t.unit[part], :w]
+            factor = _factor(t.scheme[part]) if mode == 1 else 0
         with TIMERS.span("mtr.dp.launch", "dp_dispatch"):
-            out = self._launch(mode, starts, scal, units, u_span, factor)
+            out = self._launch(MODES[mode], starts, scal, units, u_span,
+                               factor)
         TIMERS.count("dp_jobs", n)
         TIMERS.count("dp_chunks")
         cells = int((rep_len * scal[:, 1]).sum())
-        if mode == "counts":
+        if mode == 0:
             self.cells += cells
         else:
             self.cons_cells += cells
@@ -671,7 +819,8 @@ class TorchDPBatcher:
 
     def _launch(self, mode, starts, scal, units, u_span,
                 factor) -> torch.Tensor:
-        """One launch of the mode's op on a part's host arrays."""
+        """One launch of the mode's op ('counts' or 'consensus', the name
+        that the benchmark's roofline reads) on a part's host arrays."""
         self._check_bounds(scal, starts, u_span)
         dev = self.device
         args = (
@@ -703,13 +852,6 @@ class TorchDPBatcher:
             raise ValueError("rep_len*mg + ip*span overflows int32")
         if (starts < 0).any() or (starts + rep_len > len(self._flat)).any():
             raise ValueError("rep segment outside the resident reads")
-
-    def _collect_counts(self, jobs, part, fused) -> None:
-        if not fused[:, 6].all():
-            raise RuntimeError("counts kernel left a job unfinished")
-        for idx, row in zip(part, fused.tolist()):
-            m, x, ins, dele, scanned, i_final = row[:6]
-            jobs[idx].result = ((m, x, ins, dele, scanned), i_final, row[9])
 
 
 class ShardedTorchDPBatcher(TorchDPBatcher):
@@ -743,7 +885,7 @@ class ShardedTorchDPBatcher(TorchDPBatcher):
         return out if mode == "counts" else out[0]
 
 
-class TorchHybridDPBatcher:
+class TorchHybridDPBatcher(_JobListBatcher):
     """Big counts-mode DP jobs go to the torch device, small jobs to the
     native host engine, overlapped: the device leg runs in a thread while
     the host threads chew the small jobs.  Consensus jobs ride the device
@@ -792,69 +934,55 @@ class TorchHybridDPBatcher:
         return v
 
     def begin_batch(self, orgs: list[np.ndarray]) -> None:
-        # deferred: the flat upload happens on the device thread, once a
+        # the device leg's flat upload is deferred to its thread, once a
         # device-bound job set materializes
+        self.host.begin_batch(orgs)
+        self._index = self.host._index
         self._batch_orgs = orgs
 
-    def run(self, jobs: list[DPJob], deduped: bool = False) -> None:
-        uniq_jobs, remap = (jobs, None) if deduped else dedup_jobs(jobs)
-        cells = [
-            (j.qe - j.qs + 1) * len(j.unit) if j.mode == "counts"
-            else -(j.qe - j.qs + 1) * len(j.unit)
-            for j in uniq_jobs
-        ]
+    def run_table(self, t: JobTable) -> tuple[np.ndarray, tuple | None]:
+        cells = t.cells()
+        is_counts = t.mode == 0
+        # a consensus job of no cells is held to the counts threshold
+        counts_like = is_counts | (cells == 0)
         thr = self.cell_threshold
-        counts_cells = [c for c in cells if c >= 0]
-        if counts_cells and max(counts_cells) < thr:
+        if counts_like.any() and cells[counts_like].max() < thr:
             # small-job workloads would otherwise never touch the device
             thr = max(thr >> 4, 1 << 14)
+        big = np.where(counts_like, cells >= thr, cells >= self.cons_threshold)
+        # engagement gate: a device round costs a roughly fixed launch +
+        # copy latency whatever it carries
+        if big.any() and cells[big & is_counts].sum() < self.min_device_cells:
+            big[:] = False
+        self.host_cells += int(cells[~big & is_counts].sum())
+        if not big.any():
+            return self.host.run_table(t)
+        small_rows, big_rows = np.flatnonzero(~big), np.flatnonzero(big)
+        out: list = []
+        err: list = []
+        batch, parent = TIMERS.batch(), TIMERS.current()
 
-        def to_device(c):
-            if c >= 0:
-                return c >= thr
-            return -c >= self.cons_threshold
+        def dev_run():
+            with TIMERS.thread("dp_device", batch, parent), \
+                    TIMERS.span("mtr.dp.device_leg"):
+                try:
+                    if self._batch_orgs is not None:
+                        with TIMERS.span("mtr.dp.upload"):
+                            self.device.begin_batch(self._batch_orgs)
+                        self._batch_orgs = None
+                    out.append(self.device.run_table(t.take(big_rows)))
+                except Exception as e:  # re-raised on the caller thread
+                    err.append(e)
 
-        big = [j for j, c in zip(uniq_jobs, cells) if to_device(c)]
-        small = [j for j, c in zip(uniq_jobs, cells) if not to_device(c)]
-        if big:
-            # engagement gate: a device round costs a roughly fixed
-            # launch + copy latency whatever it carries
-            dev_cells = sum((j.qe - j.qs + 1) * len(j.unit) for j in big
-                            if j.mode == "counts")
-            if dev_cells < self.min_device_cells:
-                small.extend(big)
-                big = []
-        self.host_cells += sum((j.qe - j.qs + 1) * len(j.unit)
-                               for j in small if j.mode == "counts")
-        if big:
-            err: list = []
-            batch, parent = TIMERS.batch(), TIMERS.current()
-
-            def dev_run():
-                with TIMERS.thread("dp_device", batch, parent), \
-                        TIMERS.span("mtr.dp.device_leg"):
-                    try:
-                        if self._batch_orgs is not None:
-                            with TIMERS.span("mtr.dp.upload"):
-                                self.device.begin_batch(self._batch_orgs)
-                            self._batch_orgs = None
-                        self.device._run(big)
-                    except Exception as e:  # re-raised on the caller thread
-                        err.append(e)
-
-            t = threading.Thread(target=dev_run)
-            t.start()
-            self.host._run(small)
-            with TIMERS.span("mtr.dp.hybrid_wait") as waited:
-                t.join()
-            self.dev_idle_s += waited.seconds
-            if err:
-                raise err[0]
-        else:
-            self.host._run(small)
-        if remap is not None and len(uniq_jobs) != len(jobs):
-            for job, ui in zip(jobs, remap):
-                job.result = uniq_jobs[ui].result
+        th = threading.Thread(target=dev_run)
+        th.start()
+        host = self.host.run_table(t.take(small_rows))
+        with TIMERS.span("mtr.dp.hybrid_wait") as waited:
+            th.join()
+        self.dev_idle_s += waited.seconds
+        if err:
+            raise err[0]
+        return _merge_legs(t, [(small_rows, host), (big_rows, out[0])])
 
 
 def _need_cuda(backend: str) -> None:

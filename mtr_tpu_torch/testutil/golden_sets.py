@@ -41,6 +41,13 @@ def _long_read(fasta):
                 300000, 300000, 1, seed=80080)
 
 
+def _single_tr_200x40(fasta):
+    """one read: the bench set's unit and error profile, 40 copies,
+    flanks 2,000 + 2,000 (the table path's long-read case, kept short)"""
+    write_fasta(fasta, fasta[:-6] + ".units", 200, 40, 9.7, 2.9, 7.5, 2000,
+                2000, 1, seed=20040)
+
+
 MULTI20 = os.path.join(GOLDEN_DIR, "multi20_100x10.fasta")
 
 # name -> (generator or the path of an in-repo FASTA, CLI flags)
@@ -52,6 +59,7 @@ SETS = {
     "bench_structured": (_structured, ()),
     "bench_100x10_100": (_hundred, ()),
     "bench_800k": (_long_read, ()),
+    "single_tr_200x40": (_single_tr_200x40, ()),
 }
 
 

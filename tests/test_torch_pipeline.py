@@ -200,6 +200,27 @@ def test_device_batcher_refuses_consensus_jobs():
                                  for j in cons)
 
 
+def test_launch_names_its_mode(monkeypatch):
+    """TorchDPBatcher._launch takes the mode by name, 'counts' or
+    'consensus': portbench's roofline (portbench/trace.py) counts a
+    launch's work by that name."""
+    seen = []
+    real = tp.TorchDPBatcher._launch
+
+    def spy(self, mode, *a):
+        seen.append(mode)
+        return real(self, mode, *a)
+
+    monkeypatch.setattr(tp.TorchDPBatcher, "_launch", spy)
+    org = np.random.default_rng(5).integers(0, 4, 1500).astype(np.int32)
+    jobs = [DPJob(org, 10, 400, org[11:71], (1, 1, 3), "consensus"),
+            DPJob(org, 10, 400, org[11:71], (1, 1, 3))]
+    dev = tp.TorchDPBatcher(torch.device("cpu"))
+    dev.begin_batch([org])
+    dev.run(jobs)
+    assert sorted(seen) == ["consensus", "counts"]
+
+
 def _golden_lines(name, read_ids):
     return "".join(line for line in _golden(name).splitlines(True)
                    if line.split("\t", 1)[0] in read_ids)
@@ -322,13 +343,13 @@ def test_hybrid_runs_consensus_on_device_leg(monkeypatch):
     the host here, so the device leg runs only the consensus op."""
     monkeypatch.setenv("MTR_TPU_HYBRID_CONS_CELLS", "0")
     seen = []
-    real = tp.TorchDPBatcher._run
+    real = tp.TorchDPBatcher.run_table
 
-    def spy(self, jobs):
-        seen.extend(j.mode for j in jobs)
-        return real(self, jobs)
+    def spy(self, table):
+        seen.extend(tp.MODES[m] for m in table.mode)
+        return real(self, table)
 
-    monkeypatch.setattr(tp.TorchDPBatcher, "_run", spy)
+    monkeypatch.setattr(tp.TorchDPBatcher, "run_table", spy)
     batcher = tp.TorchHybridDPBatcher(
         torch.device("cpu"), cell_threshold=1 << 62, min_device_cells=0)
     got = _run("multi20_100x10", MTRConfig(backend="hybrid"),
@@ -340,10 +361,10 @@ def test_hybrid_runs_consensus_on_device_leg(monkeypatch):
 
 def test_hybrid_reraises_device_leg_failure(monkeypatch):
     """No fallback: a device-leg fault surfaces on the caller thread."""
-    def boom(self, jobs):
+    def boom(self, table):
         raise RuntimeError("device leg fault")
 
-    monkeypatch.setattr(tp.TorchDPBatcher, "_run", boom)
+    monkeypatch.setattr(tp.TorchDPBatcher, "run_table", boom)
     org = np.zeros(3000, np.int32)
     hy = tp.TorchHybridDPBatcher(torch.device("cpu"), cell_threshold=0,
                                  min_device_cells=0)

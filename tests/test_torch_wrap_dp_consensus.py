@@ -224,6 +224,19 @@ def unpack_moves(packed: torch.Tensor, mv_off: torch.Tensor,
     return out
 
 
+@pytest.mark.parametrize("form", ["list", "generator", "array"])
+def test_launch_factor_takes_any_iterable_of_schemes(form):
+    """A launch's traceback factor is the largest of its schemes' own,
+    whether the schemes come as a list, a generator (chip_smoke's jobs) or
+    a job table's (n, 3) column."""
+    schemes = [(1, 1, 3), (1, 3, 1), (2, 1, 1)]
+    forms = {"list": lambda s: s, "generator": lambda s: (x for x in s),
+             "array": lambda s: np.array(s, np.int32)}
+    assert factor_of(forms[form](schemes[:2])) == 2
+    assert factor_of(forms[form](schemes)) == max(
+        _factor(s) for s in schemes) == 6
+
+
 def test_move_row_bytes():
     """A packed move row is 32 lanes x WB bytes, WB = 1, 2, 4 for C =
     ceil(unit_len / 32) <= 4, 8, 16."""
