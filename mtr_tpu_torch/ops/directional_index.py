@@ -17,8 +17,9 @@ each on 32 / sliders lanes with its own histograms, sliding through a tile
 of positions with the C tool's incremental update, and the tiles are sized
 (`di_tiles`) so that the group's warps are about as many as the card holds
 at once.  Outputs are
-int32 (D <= 2w, every moment <= w^2 < 2^31); the host widens them to
-int64.  `_sliding_l1_device` and `_pearson_moments_device` are the plain
+int32 (D <= 2w, every moment <= w^2 < 2^31); the host widens Manhattan's
+to int64, and Pearson's finish converts its moments to float64 a chunk at
+a time.  `_sliding_l1_device` and `_pearson_moments_device` are the plain
 versions (per-symbol prefix sums over 256-symbol one-hot chunks), and a
 group's plain version is the same functions over each pass: the CPU runs
 them, and chip_smoke.py holds the kernels to them on the card.  Nothing is
@@ -69,6 +70,9 @@ SLIDER_SPAN = 65536
 WARP_BINS = 32768
 MAX_SLIDERS = 8
 NARROW_MAX_W = 32767
+# positions of one pass a step of the host Pearson finish covers: its nine
+# float64 rows of scratch (9 MiB) stay in the last-level cache
+FINISH_CHUNK = 1 << 17
 
 # device DI passes (the main path shows it ran here) are TIMERS.counters
 # by kind, those cut over a mesh apart; the -c summary prints them
@@ -362,20 +366,33 @@ def _manhattan_finish(D: np.ndarray, di_len: int, w: int,
 
 
 def _pearson_finish(moments: np.ndarray, di_len: int, w: int, k: int,
-                    n_i: int) -> np.ndarray:
-    """The host float64 finish of fill_directional_index_PCC from the
-    (5, n_i) int64 moments."""
-    q0, q1, q2, ip01, ip12 = moments
+                    n_i: int, work: np.ndarray | None = None) -> np.ndarray:
+    """The host float64 finish of fill_directional_index_PCC from one
+    pass's (5, n_i) integer moments: the C code's double operations in its
+    order, element by element.  They run in place in `work`, a (9, chunk)
+    float64 scratch (made here if None), a chunk of positions at a time:
+    no temporary array is made, and the rows stay in the cache."""
+    if work is None:
+        work = np.empty((9, min(n_i, FINISH_CHUNK)))
     n4k = float(4**k)
-    s = float(w)
-    sd0 = np.sqrt(q0 * n4k - s * s)
-    sd1 = np.sqrt(q1 * n4k - s * s)
-    sd2 = np.sqrt(q2 * n4k - s * s)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        p01 = np.where(sd0 * sd1 > 0, (ip01 * n4k - s * s) / (sd0 * sd1), 0.0)
-        p12 = np.where(sd1 * sd2 > 0, (ip12 * n4k - s * s) / (sd1 * sd2), 0.0)
+    ss = float(w) * float(w)
     di_tmp = np.full(di_len, -1.0)
-    di_tmp[w : w + n_i] = p12 - p01
+    for lo in range(0, n_i, work.shape[1]):
+        hi = min(lo + work.shape[1], n_i)
+        c = hi - lo
+        m, sd, den = work[:5, :c], work[5:8, :c], work[8, :c]
+        np.multiply(moments[:, lo:hi], n4k, out=m)
+        m -= ss  # q * 4^k - s * s, ip * 4^k - s * s
+        np.sqrt(m[:3], out=sd)
+        # p01 = (ip01 * 4^k - s * s) / (sd0 * sd1) where sd0 * sd1 > 0,
+        # else 0, into row 0; p12 likewise into row 1
+        np.multiply(sd[0], sd[1], out=den)
+        m[0] = 0.0
+        np.divide(m[3], den, out=m[0], where=den > 0)
+        np.multiply(sd[1], sd[2], out=den)
+        m[1] = 0.0
+        np.divide(m[4], den, out=m[1], where=den > 0)
+        np.subtract(m[1], m[0], out=di_tmp[w + lo : w + hi])
     return di_tmp
 
 
@@ -430,16 +447,21 @@ class _Staging:
     def run(self, vals: np.ndarray, n_codes: int, n_outs, ws, n_sym: int,
             pearson: bool, device) -> np.ndarray:
         """Upload vals[:n_codes], launch the group, copy its flat output
-        back, all on the current stream; the int64 flat output."""
-        self.up = self._fit(self.up, n_codes)
-        self.up[:n_codes].numpy()[:] = vals[:n_codes]
+        back, all on the current stream; the flat int32 output, a view of
+        the pinned buffer that the next group overwrites.  Spans:
+        mtr.di.stage (the codes into pinned memory), mtr.di.wait (the
+        host waits for upload, launch and copy back)."""
+        with TIMERS.span("mtr.di.stage"):
+            self.up = self._fit(self.up, n_codes)
+            self.up[:n_codes].numpy()[:] = vals[:n_codes]
         codes = self.up[:n_codes].to(device, non_blocking=True)
         flat = _group(codes, n_outs, ws, n_sym, pearson)
         self.down = self._fit(self.down, flat.numel())
         back = self.down[: flat.numel()]
         back.copy_(flat, non_blocking=True)
-        torch.cuda.current_stream(device).synchronize()
-        return back.numpy().astype(np.int64)
+        with TIMERS.span("mtr.di.wait"):
+            torch.cuda.current_stream(device).synchronize()
+        return back.numpy()
 
 
 def di_group_device(buf: np.ndarray, di_len: int, ws, k: int, rsl: int,
@@ -447,7 +469,10 @@ def di_group_device(buf: np.ndarray, di_len: int, ws, k: int, rsl: int,
     """Every pass of one k (windows ws) over buf in one launch on
     `device`, on the current stream: the di_tmp arrays of the oracle's
     passes, in ws's order.  `staging` (a _Staging) carries a CUDA group's
-    codes and outputs through pinned memory."""
+    codes and outputs through pinned memory.  Counts the group's traffic
+    (utils/timers.DI_COUNTERS); spans mtr.di.widen (Manhattan's int32
+    outputs to int64; Pearson's finish reads its int32 moments as they
+    are) and mtr.di.finish."""
     device = torch.device(device)
     passes = [(w, di_len - w - rsl - k + 1) for w in ws]
     passes = [(w, n_i) for w, n_i in passes if n_i > 0]
@@ -467,16 +492,26 @@ def di_group_device(buf: np.ndarray, di_len: int, ws, k: int, rsl: int,
                      else "di_pearson_passes", len(passes))
         pws = [w for w, _ in passes]
         n_outs = [n_i + w if manhattan else n_i for w, n_i in passes]
+        rows = 1 if manhattan else 5
+        TIMERS.count("di_positions", sum(n_outs))
+        TIMERS.count("di_up_bytes", 4 * n_codes)
+        TIMERS.count("di_down_bytes", 4 * rows * sum(n_outs))
         if staging is not None and device.type == "cuda":
             flat = staging.run(buf, n_codes, n_outs, pws, 4**kk,
                                not manhattan, device)
         else:
-            flat = _widen(_group(_codes(buf, n_codes, device), n_outs, pws,
-                                 4**kk, not manhattan))
-        for (w, n_i), res in zip(passes, split_group(
-                flat, n_outs, 1 if manhattan else 5)):
-            done[w] = (_manhattan_finish(res, di_len, w, n_i) if manhattan
-                       else _pearson_finish(res, di_len, w, k, n_i))
+            flat = _group(_codes(buf, n_codes, device), n_outs, pws, 4**kk,
+                          not manhattan).cpu().numpy()
+        if manhattan:
+            with TIMERS.span("mtr.di.widen"):
+                flat = flat.astype(np.int64)
+        with TIMERS.span("mtr.di.finish"):
+            work = (None if manhattan
+                    else np.empty((9, min(max(n_outs), FINISH_CHUNK))))
+            for (w, n_i), res in zip(passes, split_group(flat, n_outs, rows)):
+                done[w] = (_manhattan_finish(res, di_len, w, n_i)
+                           if manhattan
+                           else _pearson_finish(res, di_len, w, k, n_i, work))
     return [done[w] if w in done else np.full(di_len, -1.0) for w in ws]
 
 

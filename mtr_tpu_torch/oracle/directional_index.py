@@ -28,6 +28,7 @@ import numpy as np
 from mtr_tpu_torch.oracle.arena import Arena, MAX_INPUT_LENGTH
 from mtr_tpu_torch.utils.mt19937 import MT19937
 from mtr_tpu_torch.utils.encoding import rolling_kmer_codes
+from mtr_tpu_torch.utils.timers import TIMERS
 
 
 _FLANK_CACHE: dict = {}
@@ -267,8 +268,9 @@ def fill_directional_index_with_end(
             w *= 2
         if di_compute_k is not None:
             tmps = di_compute_k(arena.input_w_rand, di_len, ws, k, rsl)
-            for w, di_tmp in zip(ws, tmps):
-                put_local_maximum(di_tmp, di, di_end, di_w, di_len, w, use_native=use_native)
+            with TIMERS.span("mtr.di.pair"):
+                for w, di_tmp in zip(ws, tmps):
+                    put_local_maximum(di_tmp, di, di_end, di_w, di_len, w, use_native=use_native)
             continue
         for w in ws:
             if manhattan:

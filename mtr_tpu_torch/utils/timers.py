@@ -29,6 +29,14 @@ import time
 from collections import defaultdict
 
 
+# the device DI group's traffic, counted by
+# ops/directional_index.di_group_device on every device: output positions
+# over a group's passes, the codes handed over (int32) and the int32
+# outputs handed back (Manhattan one a position, Pearson five); -c prints
+# them beside the DI lines
+DI_COUNTERS = ("di_positions", "di_up_bytes", "di_down_bytes")
+
+
 class SpanRecord:
     """One kept span; times in perf_counter_ns, `parent` the index of the
     enclosing span in the list stop() returns (None for a root)."""
@@ -250,9 +258,17 @@ class Timers:
         out.write(f"\t{wrap_dp:f}\twrap around\n")
         out.write(f"\t{t.get('chaining', 0.0):f}\tchaining\n")
         out.write(f"\t{self.counters.get('queries', 0)}\tCount of queries\n")
-        # framework extensions
-        extras = [
+        # framework extensions: the DI's lines and its group traffic, then
+        # the other phases and every other counter
+        di = [(k, lbl) for k, lbl in (
             ("di_device", "DI stencil"),
+            ("mtr.di.stage", "DI stencil: codes into pinned memory"),
+            ("mtr.di.wait", "DI stencil: wait for upload, launch, copy back"),
+            ("mtr.di.widen", "DI stencil: int32 outputs widened"),
+            ("mtr.di.finish", "DI stencil: host float64 finish"),
+            ("mtr.di.pair", "DI pairing of a k's passes"),
+        ) if t.get(k)]
+        extras = [
             ("walks", "DBG walks (native)"),
             ("walk_kernel", "device walk launches + pull"),
             ("walk_host_route", "device walks' host route"),
@@ -262,10 +278,16 @@ class Timers:
             ("polish", "polish/revision rounds"),
         ]
         shown = [(k, lbl) for k, lbl in extras if t.get(k)]
+        di_counters = [(k, self.counters[k]) for k in DI_COUNTERS
+                       if self.counters.get(k)]
         counters = sorted((k, v) for k, v in self.counters.items()
-                          if k != "queries")
-        if shown or counters:
+                          if k != "queries" and k not in DI_COUNTERS)
+        if di or shown or di_counters or counters:
             out.write("Device pipeline phases\n")
+            for k, lbl in di:
+                out.write(f"\t{t[k]:f}\t{lbl}\n")
+            for k, v in di_counters:
+                out.write(f"\t{v}\t{k}\n")
             for k, lbl in shown:
                 out.write(f"\t{t[k]:f}\t{lbl}\n")
             for k, v in counters:

@@ -37,12 +37,15 @@ COMMON = {
     "mtr.polish.score", "mtr.stage_b.ksweep", "mtr.stage_b.replay",
     "mtr.stage_b.chaining",
 }
+# the device DI plug-in's spans on the CPU route (no pinned staging), and
+# the pairing of a k's passes after it, all on the reader thread
+DEVICE_DI = {"mtr.di.device", "mtr.di.widen", "mtr.di.finish", "mtr.di.pair"}
 DEVICE_DP = {"mtr.dp.pack", "mtr.dp.launch", "mtr.dp.wait", "mtr.dp.collect"}
 PATHS = {
     "host": COMMON | {"mtr.walk.native", "mtr.dp.host",
                       "mtr.stage_b.next_wave"},
-    "device": COMMON | DEVICE_DP | {
-        "mtr.di.device", "mtr.walk.device", "mtr.walk.upload",
+    "device": COMMON | DEVICE_DP | DEVICE_DI | {
+        "mtr.walk.device", "mtr.walk.upload",
         "mtr.walk.stage_a", "mtr.walk.kernel", "mtr.walk.rows"},
     "hybrid": COMMON | DEVICE_DP | {
         "mtr.walk.native", "mtr.dp.host", "mtr.dp.hybrid_wait",
@@ -161,7 +164,7 @@ def test_run_file_spans(fasta, path, monkeypatch):
     assert roles["reader"] == {
         "mtr.read.input", "mtr.read.di", "mtr.read.wait_walks",
         "mtr.read.wait_stage_b", "mtr.read.emit"} | (
-            {"mtr.di.device"} if path == "device" else set())
+            DEVICE_DI if path == "device" else set())
     assert "mtr.walk.batch" in roles["walks"]
     assert "mtr.stage_b.batch" in roles["stage_b"]
     if path == "hybrid":
