@@ -39,13 +39,18 @@ Phases, in order; any failure exits non-zero before the result line:
      passes of one 800 kbp read (bench_800k), a launch a k as the device
      backend runs them; it runs after phase 3,
      which makes the temporary directory;
-  2c. the DBG walk kernel against stage_b_plain on the card, with zero
-     tolerance, on fuzzed jobs (periodic reads with units 2-120, k 2-15
-     with ranges at the read's end, homopolymer / 2-mer tie storms, walks
-     that overflow the 32-tie list, whale ranges of 2,048 to 38,371
-     bases); then dbg_walk_device_batch against native.dbg_walk_batch2 on
-     the first batch of the bench set (~570k queries), every query's
-     result equal (it runs after phase 3, which writes the set);
+  2c. the DBG row walk kernel against its plain twin (walk_rows_plain,
+     on the CPU) with zero tolerance, on the stage-A chunks of fuzzed
+     queries (periodic reads with units 2-120, k 2-15 with ranges at the
+     read's end, homopolymer / 2-mer tie storms, walks that overflow the
+     32-tie list, whale ranges of 2,048 to 38,371 bases) and on
+     testutil/walk_cases.edge_chunk's rows (overflows before, at and after
+     the winner, winners in later rank groups, period-500 walks); then
+     dbg_walk_device_batch against native.dbg_walk_batch2 on the first
+     batch of the bench set (~570k queries), every query's result equal,
+     with at most two waits (walk_waits) and two synchronizing calls
+     (torch.cuda.set_sync_debug_mode("warn")) in the call (it runs after
+     phase 3, which writes the set);
   3b. the device path with the walks on the host: run_file with
      MTRConfig(backend="device", use_device_walks=False) on the same set,
      byte-identical to the golden, with counts and consensus launches and
@@ -53,11 +58,11 @@ Phases, in order; any failure exits non-zero before the result line:
   3c. the device path whole: run_file with MTRConfig(backend="device")
      (mtr_tpu's default: DBG walks on the card) on the bench set and the
      100x10 golden, byte-identical, with the launches of all three
-     kernels, stage-A passes, speculative jobs and host-route queries
-     counted, the 400 Manhattan DI passes in 60 launches of the DI kernel
+     kernels, stage-A passes, the walk route's calls and waits and
+     host-route queries counted, the 400 Manhattan DI passes in 60 launches of the DI kernel
      (one a read and k) and no plain DI call on the card, and the walk
      thread's seconds split into
-     stage A and job building, kernel launches and pulls, host route and
+     stage A launches, walk kernel launches, the pull, host route and
      the rest; then `python -m mtr_tpu_torch.cli --backend device` in a
      subprocess, same stdout;
   3e. the device path whole with -p's Pearson DI
@@ -85,12 +90,13 @@ Phases, in order; any failure exits non-zero before the result line:
      the run's sum, the three heaviest launches, bound and share; the
      kernel against the plain version on the heaviest launch (zero
      tolerance) and the plain version's time there;
-  4c. every walk launch of that run replayed the same way against the
-     first design (csrc/dbg_walk_v1.cu), with jobs, V bucket, table rows
-     and longest walk a launch; then, heaviest first within
-     WALK_PLAIN_BUDGET_S, the kernel against stage_b_plain on the launch
-     (zero tolerance) and the lookups and steps stage_b_plain counts
-     there, for the bound;
+  4c. every row-kernel launch of that run (a chunk's stage-A outputs)
+     replayed the same way against the first design (csrc/dbg_walk_v1.cu
+     on the chunk's speculative jobs: every listed max node both ways),
+     with rows, gated rows, jobs, V bucket and winning-row entries a
+     launch; then, heaviest first within WALK_PLAIN_BUDGET_S, the kernel
+     against walk_rows_plain on the launch (zero tolerance) and the
+     lookups and steps it counts there, for the bound;
   4e. every DI launch of phases 3c (Manhattan) and 3e (Pearson), recorded
      by Spies, replayed: the kernel against its plain version (zero
      tolerance), and with CUDA events against the first design
@@ -168,7 +174,7 @@ MESH_SLOTS = ("cuda:0", "cuda:0")
 ACCURACY_PINS = (35, 48, 49)
 WALK_REPLACES = "mtr_tpu/ops/dbg_device.py:132 (_stage_b)"
 WALK_UNITS = (2, 3, 7, 15, 33, 60, 95, 120)
-# seconds of stage_b_plain on the replayed walk launches (heaviest first)
+# seconds of walk_rows_plain on the replayed walk launches (heaviest first)
 # for the bound's lookups and steps and the check against the kernel; the
 # bench run's 60 launches took ~200 s in all on an H100, so this budget
 # checks the heaviest of them
@@ -548,36 +554,6 @@ def consensus_vs_references():
     return worst
 
 
-def walk_chunks(orgs, lens, queries):
-    """(v_pad, tables, jobs) per chunk of the queries (read, qs, qe, k),
-    on the card: stage A's tables and the speculative jobs built from
-    them, as dbg_walk_device_batch builds them."""
-    import numpy as np
-    import torch
-
-    from mtr_tpu_torch.ops import dbg_device as dw
-
-    q = np.asarray(queries, np.int64).reshape(-1, 4)
-    ridx, qs, qe, k = q.T
-    V = qe - qs + 1
-    n_code = np.minimum(qe, np.asarray(lens, np.int64)[ridx] - k + 1) - qs
-    lmax = np.minimum(dw.MAX_PERIOD, (qe - qs) // dw.MIN_NUM_FREQ_UNIT)
-    flat, offs = dw.upload_reads(orgs, "cuda")
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
-
-    for v_pad, c in dw.bucket_chunks(np.arange(len(q)), V, dw.V_MAX):
-        sv, adj, maxfreq, nodes, n_nodes = dw.stage_a(
-            flat, torch.from_numpy(offs[ridx[c]] + qs[c]).cuda(),
-            put(n_code[c]), put(V[c]), put(k[c]), v_pad)
-        _, _, tq, node0, is_fwd, _ = dw.chunk_jobs(maxfreq, n_nodes, nodes)
-        if len(tq):
-            qi = c[tq]
-            yield v_pad, (sv, adj), [put(a) for a in
-                                     (tq, node0, is_fwd, k[qi], lmax[qi])]
-
-
 def walk_fuzz_set(rng):
     """Reads and (read, qs, qe, k) queries of phase 2c."""
     import numpy as np
@@ -613,109 +589,100 @@ def walk_fuzz_set(rng):
     return orgs, [len(o) - 1 for o in orgs], queries
 
 
-def canonical_walks(res, n):
-    """Per-query view of a walk result dict (row numbers differ between
-    engines): found_last, periods, each direction's unit / score row cut
-    to its period."""
-    import numpy as np
-
-    out = {key: np.asarray(res[key][:n]) for key in
-           ("found_last", "fwd_period", "bwd_period")}
-    col = np.arange(500)[None, :]
-    for d in ("fwd", "bwd"):
-        row = np.asarray(res[f"{d}_row"][:n])
-        has = row >= 0
-        out[f"{d}_has"] = has
-        keep = has[:, None] & (col < out[f"{d}_period"][:, None])
-        for key in ("units", "scores"):
-            full = np.zeros((n, 500), np.int64)
-            full[has] = res[key][row[has]]
-            out[f"{d}_{key}"] = np.where(keep, full, 0)
-    return out
-
-
-def bench_batch_queries(fasta):
-    """The first batch of the bench set as run_file cuts it (host DI),
-    and its wave-1 walk queries."""
-    from mtr_tpu_torch.config import MTRConfig
-    from mtr_tpu_torch.io.fasta import iter_fasta
-    from mtr_tpu_torch.oracle.arena import Arena
-    from mtr_tpu_torch.oracle.directional_index import (
-        fill_directional_index_with_end,
-    )
-    from mtr_tpu_torch.pipeline import ReadState, _collect_queries
-
-    cfg = MTRConfig(backend="device")
-    arena = Arena(cfg.max_input_length)
-    states, bases = [], 0
-    for ridx, read in enumerate(iter_fasta(fasta, cfg.max_input_length)):
-        arena.load_read(read.codes)
-        L = read.length
-        di, di_end, di_w = fill_directional_index_with_end(
-            arena, L, 100 if L < 1000 else L // 10, manhattan=True)
-        states.append(ReadState(read, arena.org_input[: L + 1].copy(), di,
-                                di_end, di_w, ridx))
-        bases += L
-        if len(states) >= cfg.reads_per_batch or bases >= cfg.bases_per_batch:
-            break
-    orgs = [st.org for st in states]
-    lens = [st.read.length for st in states]
-    return orgs, lens, _collect_queries(states, cfg)
+def rows_differ(got, want):
+    """Rows of two walk_cases per-row results (CPU) that differ."""
+    bad = np.zeros(len(want["bad"]), bool)
+    for key in want:
+        d = np.asarray(got[key]) != np.asarray(want[key])
+        bad |= d.reshape(len(bad), -1).any(1)
+    return bad
 
 
 def walk_vs_references(fasta):
-    """Phase 2c.  Returns the largest absolute difference and the number
-    of mismatching jobs (both must be 0)."""
+    """Phase 2c.  Returns the number of mismatching rows and queries
+    (must be 0)."""
+    import warnings
+
     import numpy as np
     import torch
 
     from mtr_tpu_torch import native
+    from mtr_tpu_torch.ops import _build
     from mtr_tpu_torch.ops import dbg_device as dw
+    from mtr_tpu_torch.testutil import walk_cases as wc
+    from mtr_tpu_torch.utils.timers import TIMERS
 
+    groups = {v: _build.library().mtr_dbg_walk_group(v) for v in dw.V_BUCKETS}
+    check(all(g == dw.walk_group(v) for v, g in groups.items()),
+          f"the row kernel walks {groups} nodes a direction at once by "
+          f"table width, walk_rows_plain {dw.walk_group(64)} / "
+          f"{dw.walk_group(dw.V_MAX)}")
     rng = np.random.default_rng(20242)
     orgs, lens, queries = walk_fuzz_set(rng)
-    worst = 0
-    tot = {"jobs": 0, "found": 0, "ovf": 0, "bad": 0}
+    tot = {"rows": 0, "won": 0, "bad_rows": 0, "mismatching": 0}
     t0 = time.perf_counter()
-    for v_pad, (sv, adj), job in walk_chunks(orgs, lens, queries):
-        got = dw.dbg_walk(sv, adj, *job)
-        want = dw.stage_b_plain(sv, adj, *job)
-        torch.cuda.synchronize()
-        bad = torch.zeros(job[0].shape[0], dtype=torch.bool,
-                          device=job[0].device)
-        for g, w in zip(got, want):
-            d = (g.long() - w.long()).abs().reshape(len(bad), -1)
-            bad |= d.amax(1) > 0
-            worst = max(worst, int(d.max()))
-        tot["jobs"] += len(bad)
-        tot["bad"] += int(bad.sum())
-        tot["found"] += int(got[0].sum())
-        tot["ovf"] += int(got[4].sum())
-        info(f"walk kernel vs plain on the card, V bucket {v_pad}: "
-             f"{len(bad)} jobs, {int(bad.sum())} mismatching")
-    info(f"walk kernel vs plain: {tot['jobs']} jobs of {len(queries)} "
-         f"queries, {tot['found']} found, {tot['ovf']} tie overflows, "
-         f"{tot['bad']} mismatching ({time.perf_counter() - t0:.1f} s)")
-    check(tot["bad"] == 0, "walk kernel disagrees with stage_b_plain")
-    check(tot["ovf"] > 0, "the fuzz set set no tie overflow")
-    check(tot["found"] > 0, "the fuzz set found no unit")
 
-    b_orgs, b_lens, (ridx, qs, qe, _, k) = bench_batch_queries(fasta)
+    def compare(label, chunk):
+        got = wc.run_rows(*chunk)
+        want = wc.run_rows(*(t.cpu() for t in chunk))
+        diff = rows_differ(got, want)
+        tot["rows"] += len(diff)
+        tot["won"] += int((want["fwd_period"] > 0).sum()
+                          + (want["bwd_period"] > 0).sum())
+        tot["bad_rows"] += int(want["bad"].sum())
+        tot["mismatching"] += int(diff.sum())
+        info(f"walk row kernel vs plain twin on the card, {label}: "
+             f"{len(diff)} rows, {int(diff.sum())} mismatching")
+
+    for v_pad, chunk in wc.chunks_of(orgs, lens, queries, "cuda"):
+        compare(f"V bucket {v_pad}", chunk)
+    for v_pad in (4096, dw.WIDE_V, dw.V_MAX):  # 2, 8 and 8 walks a group
+        chunk, kinds, _ = wc.edge_chunk(v_pad)
+        compare(f"edge rows at V {v_pad} ({', '.join(sorted(set(kinds)))})",
+                tuple(t.cuda() for t in chunk))
+    info(f"walk row kernel vs plain twin: {tot['rows']} rows of "
+         f"{len(queries)} fuzz queries and the edge rows, {tot['won']} "
+         f"winning walks, {tot['bad_rows']} bad rows, {tot['mismatching']} "
+         f"mismatching ({time.perf_counter() - t0:.1f} s)")
+    check(tot["mismatching"] == 0, "walk row kernel disagrees with its "
+          "plain twin")
+    check(tot["bad_rows"] > 0, "the fuzz set made no bad row")
+    check(tot["won"] > 0, "the fuzz set found no unit")
+
+    b_orgs, b_lens, (ridx, qs, qe, _, k) = wc.batch_queries(fasta)
     n = len(ridx)
-    t0 = time.perf_counter()
-    got = dw.dbg_walk_device_batch(b_orgs, b_lens, ridx, qs, qe, k, "cuda")
-    dt_dev = time.perf_counter() - t0
+    dw.dbg_walk_device_batch(b_orgs, b_lens, ridx, qs, qe, k, "cuda")
+    before = TIMERS.snapshot()[1]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            got = dw.dbg_walk_device_batch(b_orgs, b_lens, ridx, qs, qe, k,
+                                           "cuda")
+            dt_dev = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = TIMERS.snapshot()[1]
+    waits = after.get("walk_waits", 0) - before.get("walk_waits", 0)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
     t0 = time.perf_counter()
     want = native.dbg_walk_batch2(b_orgs, b_lens, ridx, qs, qe, k)
     dt_nat = time.perf_counter() - t0
-    g, w = canonical_walks(got, n), canonical_walks(want, n)
+    g, w = wc.canonical(got, n), wc.canonical(want, n)
     diff = [key for key in w if not np.array_equal(g[key], w[key])]
+    rows = int((got["fwd_off"] >= 0).sum() + (got["bwd_off"] >= 0).sum())
     info(f"dbg_walk_device_batch vs native on bench batch 1: {n} queries, "
-         f"{int((got['fwd_row'] >= 0).sum() + (got['bwd_row'] >= 0).sum())} "
-         f"unit rows, fields differing: {diff or 'none'} (device "
-         f"{dt_dev:.3f} s incl. first use, native {dt_nat:.3f} s)")
+         f"{rows} unit rows, fields differing: {diff or 'none'} (device "
+         f"{dt_dev:.3f} s after a first call, native {dt_nat:.3f} s); "
+         f"walk_waits {waits}, synchronizing calls the sync debug mode saw "
+         f"{len(syncs)}{': ' + '; '.join(sorted(set(syncs))) if syncs else ''}")
     check(not diff, "dbg_walk_device_batch disagrees with the native engine")
-    return worst, tot["bad"]
+    check(waits <= 2 and len(syncs) <= 2, f"the device walk route waited "
+          f"{waits} times (counted) and synchronized {len(syncs)} times in "
+          f"one call")
+    return tot["mismatching"]
 
 
 def di_group_out(kind, codes, n_outs, ws, n_sym):
@@ -1076,11 +1043,14 @@ def device_walk_path(fasta, golden):
     info(f"bench set, port device with device walks: {dt:.3f} s, "
          f"{BENCH_READS / dt:.3f} reads/s, "
          f"{out.getvalue().count(chr(10))} records")
+    calls = counted.get("walk_device_calls", 0)
     info(f"bench set, device walks: walk seconds {spent.get('walks', 0.0):.3f}"
-         f" (stage A + job building {spent.get('count_table', 0.0):.3f}), "
+         f" (stage A launches {spent.get('count_table', 0.0):.3f}), "
          f"{launches['stage_a']} stage-A passes, {launches['dbg_walk']} "
-         f"walk-kernel launches, {counted.get('walk_jobs', 0)} speculative "
-         f"jobs, {n_q} walk queries")
+         f"walk-kernel launches, {calls} route calls, "
+         f"{counted.get('walk_waits', 0)} waits, "
+         f"{counted.get('walk_rows_bytes', 0)} bytes of rows pulled, {n_q} "
+         f"walk queries")
     info(f"bench set, device walks: walk_fallback_queries {n_host} "
          f"(share {n_host / max(n_q, 1):.6f})")
     info(f"bench set, port device with device walks: {launches['counts']} "
@@ -1089,8 +1059,9 @@ def device_walk_path(fasta, golden):
     info("bench set, device walks, stage seconds (threads overlap): "
          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spent.items())))
     split = {name: spent.get(key, 0.0) for name, key in (
-        ("stage A and job building", "count_table"),
-        ("kernel launches and pulls", "walk_kernel"),
+        ("stage A launches", "count_table"),
+        ("kernel launches", "walk_kernel"),
+        ("the pull", "mtr.walk.rows"),
         ("host route", "walk_host_route"))}
     walk_s = spent.get("walks", 0.0)
     info(f"bench set, device walks, the walk thread: walks {walk_s:.3f} s = "
@@ -1442,7 +1413,7 @@ class Spies:
     """Records the inputs of every walk-, consensus- and DI-kernel call of
     a run (a DI call is a group launch: codes, n_outs, ws, n_sym), and
     counts the plain DI versions' calls on the card.  Their callers
-    (ops/dbg_device._run_chunk, TorchDPBatcher._dispatch,
+    (ops/dbg_device._device_rows, TorchDPBatcher._dispatch,
     ops/directional_index._group / plain_group) look the ops up at call
     time, so
     a stand-in that records its arguments and calls the real op sees every
@@ -1456,7 +1427,7 @@ class Spies:
 
         self.walks, self.cons, self.di_l1, self.di_pcc = [], [], [], []
         self.di_plain_on_card = 0
-        self._real = (dw.dbg_walk, tp.wrap_dp_consensus,
+        self._real = (dw.walk_rows, tp.wrap_dp_consensus,
                       di.sliding_l1_kernel, di.pearson_moments_kernel,
                       di._sliding_l1_device, di._pearson_moments_device)
 
@@ -1473,7 +1444,7 @@ class Spies:
             return call
 
         real = self._real
-        dw.dbg_walk = recorder(self.walks, real[0])
+        dw.walk_rows = recorder(self.walks, real[0])
         tp.wrap_dp_consensus = recorder(self.cons, real[1])
         di.sliding_l1_kernel = recorder(self.di_l1, real[2])
         di.pearson_moments_kernel = recorder(self.di_pcc, real[3])
@@ -1486,7 +1457,7 @@ class Spies:
         from mtr_tpu_torch.ops import dbg_device as dw
         from mtr_tpu_torch.ops import directional_index as di
 
-        (dw.dbg_walk, tp.wrap_dp_consensus, di.sliding_l1_kernel,
+        (dw.walk_rows, tp.wrap_dp_consensus, di.sliding_l1_kernel,
          di.pearson_moments_kernel, di._sliding_l1_device,
          di._pearson_moments_device) = self._real
         return False
@@ -1518,40 +1489,46 @@ def in_turns(variants, n):
     return {name: min(v) for name, v in ms.items()}
 
 
-def walk_stats(args, outs):
-    """Per walk launch: jobs, V bucket, table rows, steps walked (a found
-    walk its period, else lmax), the longest walk, and the same over the
-    jobs the batch reads (ranks at or before their (row, direction)
-    group's winner; every job of a group without one)."""
-    sv, _, tq, _, is_fwd, _, lmax = (a.cpu().numpy() if a.dim() == 1 else a
-                                     for a in args)
-    found, period = outs[0].cpu().numpy(), outs[1].cpu().numpy()
-    steps = np.where(period > 0, period, lmax).astype(np.int64)
-    n = len(tq)
-    first = np.r_[True, (tq[1:] != tq[:-1]) | (is_fwd[1:] != is_fwd[:-1])]
-    gid = np.cumsum(first) - 1
-    start = np.nonzero(first)[0]
-    rank = np.arange(n) - start[gid]
-    big = np.int64(1) << 40
-    win = np.minimum.reduceat(np.where(found, rank, big), start)
-    read = rank <= win[gid]
-    return {"jobs": n, "v_pad": int(sv.shape[1]), "rows": int(sv.shape[0]),
-            "table_mb": sv.numel() * 8 / 1e6,
-            "steps": int(steps.sum()), "max_steps": int(steps.max()),
-            "steps_read": int(steps[read].sum()),
-            "max_steps_read": int(steps[read].max())}
+def spec_jobs(args):
+    """The speculative jobs of one recorded row-kernel launch (the earlier
+    design's: every listed max node of a gated row, forward then
+    backward), as int32 CUDA tensors (tq, node0, is_fwd, k, lmax) for the
+    first design's kernel."""
+    import torch
+
+    sv, _, maxfreq, nodes, n_nodes, k, lmax = args[:7]
+    gated = np.nonzero(maxfreq.cpu().numpy() > 5)[0]
+    nn = n_nodes.cpu().numpy()[gated].astype(np.int64)
+    per = 2 * nn
+    grp = np.repeat(np.arange(len(gated)), per)
+    within = np.arange(int(per.sum())) - np.repeat(np.cumsum(per) - per, per)
+    is_fwd = within < nn[grp]
+    rank = np.where(is_fwd, within, within - nn[grp])
+    tq = gated[grp]
+    k_h, lmax_h = k.cpu().numpy(), lmax.cpu().numpy()
+    cols = (tq, nodes.cpu().numpy()[gated][grp, rank], is_fwd, k_h[tq],
+            lmax_h[tq])
+    return [torch.from_numpy(np.ascontiguousarray(c, np.int32)).cuda()
+            for c in cols]
 
 
-def walk_bound(args, lookups, steps):
-    """The walk's bound on one launch: (lookups x (ceil(log2 v_pad) + 1)
-    x 2 + steps x 20) int32 operations; bytes: the tables and job rows
-    read once, a job's found / period / ovf and a step's unit and score
-    written once."""
-    sv, adj = args[:2]
-    v_pad = sv.shape[1]
-    ops = lookups * ((v_pad - 1).bit_length() + 1) * 2 + steps * 20
-    n_bytes = (2 * sv.numel() * 4 + 5 * args[2].numel() * 4
-               + args[2].numel() * 6 + steps * 8)
+def walk_bound(args, lookups, steps, row_entries):
+    """The row walk's bound on one launch: (lookups x (log2 of the staged
+    level's length + 1) x 2 + steps x 20) int32 operations, counting the
+    lookups and steps of the walks up to each direction's winner
+    (walk_rows_plain's PLAIN_WORK); bytes as the kernel moves them: an
+    ungated row's maxfreq read (4) and results written (32), a gated
+    row's staged level (v_pad / S values; S = 2 above 32,768), inputs
+    (maxfreq, n_nodes, k, lmax, 100 nodes) and results, and each winning
+    row's unit (1 byte) and score (4) written.  The lookups' own loads
+    are left out, so the bound is a floor."""
+    sv, maxfreq = args[0], args[2]
+    v_pad, rows = sv.shape[1], sv.shape[0]
+    gated = int((maxfreq > 5).sum())
+    level = v_pad // (1 if v_pad <= 1 << 15 else 2)
+    ops = lookups * ((level - 1).bit_length() + 1) * 2 + steps * 20
+    n_bytes = ((rows - gated) * (4 + 32)
+               + gated * (level * 4 + 4 * 4 + 400 + 32) + row_entries * 5)
     return bound_ms(ops, n_bytes)
 
 
@@ -1566,28 +1543,57 @@ def cons_bound(scal):
 
 
 def bare_walk(fn, args):
-    """A bare launcher of a walk kernel entry with the first design's C
-    signature on one launch's inputs, and its outputs (allocated once,
-    zeroed: the kernel writes only the steps walked)."""
+    """A bare launcher of the first design's walk kernel (one warp a
+    speculative job, csrc/dbg_walk_v1.cu) on one recorded row-kernel
+    launch: every listed max node of every gated row walked both ways, as
+    the earlier route launched it; and its job count."""
     import ctypes
 
     import torch
 
-    sv, adj, tq, node0, is_fwd, k, lmax = args
-    J, dev = tq.numel(), sv.device
+    sv, adj = args[:2]
+    jobs = spec_jobs(args)
+    J, dev = jobs[0].numel(), sv.device
     outs = (torch.zeros(J, dtype=torch.bool, device=dev),
             torch.zeros(J, dtype=torch.int32, device=dev),
             torch.zeros((J, 500), dtype=torch.int32, device=dev),
             torch.zeros((J, 500), dtype=torch.int32, device=dev),
             torch.zeros(J, dtype=torch.bool, device=dev))
     ptrs = ([sv.data_ptr(), adj.data_ptr(), sv.shape[1]]
-            + [a.data_ptr() for a in (tq, node0, is_fwd, k, lmax)] + [J]
+            + [a.data_ptr() for a in jobs] + [J]
             + [o.data_ptr() for o in outs]
             + [ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)])
 
+    def run(keep=(jobs, outs)):  # the launch reads them by address
+        if J:
+            err = fn(*ptrs)
+            check(err == 0, f"walk kernel launch failed: CUDA error {err}")
+
+    return run, J
+
+
+def row_walk(args):
+    """A bare launcher of the row kernel on one recorded launch's inputs,
+    with outputs of its own (the slot counter zeroed before each launch,
+    so a replay reuses its row buffers), and those outputs."""
+    import torch
+
+    from mtr_tpu_torch.ops import dbg_device as dw
+
+    sv, lmax = args[0], args[6]
+    q, dev = sv.shape[0], sv.device
+    cap = max(1, 2 * int(lmax.clamp(min=0).sum()))
+    outs = (torch.zeros((q, 4), dtype=torch.int32, device=dev),
+            torch.zeros((q, 2), dtype=torch.int64, device=dev),
+            torch.zeros(cap, dtype=torch.uint8, device=dev),
+            torch.zeros(cap, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev))
+    launch = dw.prepare(*args[:7], *outs)
+    used = outs[4]
+
     def run():
-        err = fn(*ptrs)
-        check(err == 0, f"walk kernel launch failed: CUDA error {err}")
+        used.zero_()
+        launch()
 
     return run, outs
 
@@ -1642,50 +1648,52 @@ def bare_cons_v1(lib, args):
 
 
 def replay_walks(walks, budget_s):
-    """Phase 4c: every walk launch of the device-whole bench run replayed
-    on its own inputs, the first design ("before", csrc/dbg_walk_v1.cu)
-    and the kernel ("now") in turns with CUDA events; launch statistics;
-    then, heaviest launches first (by "now") and within budget_s of plain
-    time, the kernel against stage_b_plain on the launch (zero tolerance)
-    and the lookups and steps stage_b_plain counts there, for the bound.
-    Returns one dict a launch."""
+    """Phase 4c: every row-kernel launch of the device-whole bench run
+    replayed on its own inputs (stage A's outputs of a chunk), the first
+    design ("before", csrc/dbg_walk_v1.cu, on the chunk's speculative
+    jobs: every listed max node both ways) and the row kernel ("now", a
+    slot-counter reset included) in turns with CUDA events; launch
+    statistics; then, heaviest launches first (by "now") and within
+    budget_s of plain time, the kernel against walk_rows_plain on the
+    launch (zero tolerance) and the lookups and steps it counts there,
+    for the bound.  Returns one dict a launch."""
     import torch
 
     from mtr_tpu_torch.ops import _build
     from mtr_tpu_torch.ops import dbg_device as dw
+    from mtr_tpu_torch.testutil import walk_cases as wc
 
     base = _build.baseline_library()
     rows = []
     for n, args in enumerate(walks):
-        runs = {"before": bare_walk(base.mtr_dbg_walk_v1, args),
-                "now": dw.prepare(*args)}
-        ms = in_turns({name: r[0] for name, r in runs.items()}, 2)
-        rows.append({"launch": n, **walk_stats(args, runs["before"][1]),
-                     "ms": ms})
-        del runs
+        before, jobs = bare_walk(base.mtr_dbg_walk_v1, args)
+        now, outs = row_walk(args)
+        ms = in_turns({"before": before, "now": now}, 2)
+        sv, maxfreq = args[0], args[2]
+        rows.append({"launch": n, "rows": int(sv.shape[0]),
+                     "gated": int((maxfreq > 5).sum()), "jobs": jobs,
+                     "v_pad": int(sv.shape[1]),
+                     "row_entries": int(outs[4].item()),
+                     "table_mb": sv.numel() * 8 / 1e6, "ms": ms})
+        del before, now, outs
     spent = 0.0
     for row in sorted(rows, key=lambda r: -r["ms"]["now"]):
         if spent > budget_s:
             break
-        args = walks[row["launch"]]
-        launch, got = dw.prepare(*args)
-        launch()
+        args = walks[row["launch"]][:7]
+        got = wc.run_rows(*args)
         dw.PLAIN_WORK.update(lookups=0, steps=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = dw.stage_b_plain(*args)
-        torch.cuda.synchronize()
+        want = wc.run_rows(*(t.cpu() for t in args))
         dt = time.perf_counter() - t0
         spent += dt
-        bad = torch.zeros(args[2].numel(), dtype=torch.bool,
-                          device=args[2].device)
-        for g, w in zip(got, want):
-            bad |= (g.long() != w.long()).reshape(len(bad), -1).any(1)
-        row.update(plain_ms=dt * 1e3, mismatches=int(bad.sum()),
+        row.update(plain_ms=dt * 1e3,
+                   mismatches=int(rows_differ(got, want).sum()),
                    lookups=dw.PLAIN_WORK["lookups"],
                    plain_steps=dw.PLAIN_WORK["steps"])
         row["bound_ms"], row["bound_by"] = walk_bound(
-            args, row["lookups"], row["plain_steps"])
+            args, row["lookups"], row["plain_steps"], row["row_entries"])
     return rows
 
 
@@ -2196,7 +2204,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
             (fasta, golden, hybrid_rate, host_rate, counts_launches,
              single) = main_path(tmp)
-            walk_worst, walk_bad = walk_vs_references(fasta)
+            walk_bad = walk_vs_references(fasta)
             di_worst, _ = di_vs_plain(tmp)
             one_device = device_path(fasta, golden, hybrid_rate, host_rate)
             launches, spies = device_walk_path(fasta, golden)
@@ -2227,12 +2235,12 @@ def main() -> int:
         counted = [r for r in walk_rows if "mismatches" in r]
         check("mismatches" in walk_heavy and not any(
             r["mismatches"] for r in counted), "walk kernel disagrees with "
-              "stage_b_plain on the run's launches")
+              "walk_rows_plain on the run's launches")
         walk_bound_run = sum(r["bound_ms"] for r in counted)
         lookups = sum(r["lookups"] for r in counted)
         steps = sum(r["plain_steps"] for r in counted)
         info(f"walk kernel bound over the {len(counted)} of {len(walk_rows)} "
-             f"launches stage_b_plain counted ({lookups} lookups, {steps} "
+             f"launches walk_rows_plain counted ({lookups} lookups, {steps} "
              f"steps, 0 mismatching): {walk_bound_run:.4f} ms; consensus "
              f"bound over the run: "
              f"{sum(r['bound_ms'] for r in cons_rows):.4f} ms")
@@ -2298,7 +2306,7 @@ def main() -> int:
         "source": "mtr_tpu_torch/csrc/dbg_walk.cu",
         "replaces": WALK_REPLACES,
         "launches": launches["dbg_walk"],
-        "max_abs_err": walk_worst,
+        "max_abs_err": None,
         "mismatches": walk_bad + sum(r["mismatches"] for r in counted),
         "ms": walk_heavy["ms"]["now"],
         "plain_ms": walk_heavy["plain_ms"],
@@ -2311,8 +2319,8 @@ def main() -> int:
         "run_bound_ms": walk_bound_run,
         "run_bound_launches": len(counted),
         "heaviest_launch": heaviest(walk_heavy, (
-            "launch", "jobs", "v_pad", "rows", "max_steps", "steps",
-            "lookups")),
+            "launch", "rows", "gated", "jobs", "v_pad", "row_entries",
+            "plain_steps", "lookups")),
     }] + [{
         "name": name,
         "route": "cuda",

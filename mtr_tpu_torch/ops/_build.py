@@ -115,8 +115,8 @@ def library() -> ctypes.CDLL:
             _LIB = _bind(ctypes.CDLL(_build("mtr_tpu_torch", SOURCES)), {
                 "mtr_wrap_dp_counts": "ippppppip",
                 "mtr_wrap_dp_consensus": "ipppppppipppip",
-                "mtr_dbg_walk": "ppipi" + "p" * 11,
-                "mtr_dbg_walk_jobs_per_block": "",
+                "mtr_dbg_walk_rows": "ppii" + "p" * 11,
+                "mtr_dbg_walk_group": "i",
                 "mtr_di_sliding_l1": "pipiipip",
                 "mtr_di_pearson_moments": "pipiipip",
                 "mtr_di_resident_warps": "iiii",

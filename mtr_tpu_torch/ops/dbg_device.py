@@ -10,18 +10,20 @@ stable sort; run counts from cummax / a flipped cummin; the max-node list
 in first-occurrence order, capped at 100, and the listed nodes'
 decremented counts in the live table (consensus.c:156-164, 199-222).
 
-Stage B (walks): one speculative job per (gated query, direction, start
-node); the reference walks the nodes in order and stops at the first loop
-(consensus.c:534-573), so walking all of them and taking the first found
-one is equivalent.  CUDA tensors launch csrc/dbg_walk.cu (one block per
-table row and up to two of its jobs, a warp per job, the row's search
-level staged in shared memory; walk_blocks builds its launch table); CPU
-tensors run stage_b_plain, the vectorised port of JAX's two fori_loops.
-A job reads its query's row of the chunk's tables through its row index;
-nothing is copied per job.
+Stage B (walks), settled per row: for every gated query (maxfreq >
+MIN_NUM_FREQ_UNIT) and direction, the listed max nodes are walked in rank
+order, walk_group(v_pad) at a time, until a group in which some walk
+loops; the lowest looping rank wins.  The reference walks the nodes in turn and stops
+at the first loop (consensus.c:534-573), so this is its winner.  CUDA
+tensors launch csrc/dbg_walk.cu (a block per row, reading stage A's
+outputs where they lie; the winning rows cut to their periods on the
+card); CPU tensors run walk_rows_plain, stage_b_plain's walks (the
+vectorised port of JAX's two fori_loops) in the same rank groups.
 
-dbg_walk_device_batch drives both and returns native.dbg_walk_batch2's
-result dict.  The device keeps tie lists of T_DEV = 32 against the
+dbg_walk_device_batch drives both: one upload a call, stage A and the
+row kernel a chunk (bucket_chunks) without waiting, and one pull of the
+per-query table and one of the rows at the end (walk_waits counts the
+two waits).  The device keeps tie lists of T_DEV = 32 against the
 reference's 1,024: a query whose tie list overflows at or before its
 winning node, and a query outside the device envelope (range wider than
 V_MAX), goes to the host engine, in one native.dbg_walk_batch2 call for
@@ -51,27 +53,45 @@ INT_MAX = 2**31 - 1
 V_BUCKETS = tuple(1 << s for s in range(6, 17))   # 64 .. 65,536
 V_MAX = V_BUCKETS[-1]   # widest range walked on the device
 CHUNK_ELEMS = 1 << 23   # stage-A table elements per chunk
-JOBS_PER_LAUNCH = 1 << 16  # stage-B jobs per launch (units + scores: 256 MB)
+WIDE_V = 1 << 13        # table width from which a direction walks 8 at once
 
 # stage-A passes and walk-kernel launches are TIMERS.counters
-# "stage_a_calls" and "launch.dbg_walk" (the main path shows it ran here)
-# work of stage_b_plain's walks since the last reset: table lookups and
-# walk steps (the walk kernel's bound in chip_smoke.py counts them)
+# "stage_a_calls" and "launch.dbg_walk" (the main path shows it ran here);
+# "walk_device_calls", "walk_waits" and "walk_rows_bytes" count the device
+# route's calls, its waits for the card and the winning rows' bytes pulled.
+# PLAIN_WORK: work of stage_b_plain's walks since the last reset, table
+# lookups and walk steps; walk_rows_plain adds only the walks a row needs,
+# those up to its winner in each direction (the walk kernel's bound in
+# chip_smoke.py counts them)
 PLAIN_WORK = {"lookups": 0, "steps": 0}
 
+
+def walk_group(v_pad: int) -> int:
+    """Max nodes a direction walks at once at table width v_pad (the row
+    kernel's G: more warps a row where the staged level lets at most
+    three rows onto an SM)."""
+    return 8 if v_pad >= WIDE_V else 2
+
 _POW4 = [4**i for i in range(16)]
+
+
+def _flat_reads(orgs) -> tuple[np.ndarray, np.ndarray]:
+    """The reads as one flat int8 array (never empty), and each read's
+    int64 offset into it."""
+    lens = np.fromiter((len(o) for o in orgs), np.int64, len(orgs))
+    offs = np.zeros(len(orgs), np.int64)
+    offs[1:] = np.cumsum(lens)[:-1]
+    flat = np.zeros(int(lens.sum()) + 1, np.int8)
+    for o, off in zip(orgs, offs):
+        flat[off : off + len(o)] = o
+    return flat, offs
 
 
 def upload_reads(orgs, device) -> tuple[torch.Tensor, np.ndarray]:
     """The reads as one flat int8 tensor on `device`, and each read's
     int64 offset into it.  Uploaded on every call: nothing is cached, so a
     recycled array never meets a stale copy."""
-    lens = np.fromiter((len(o) for o in orgs), np.int64, len(orgs))
-    offs = np.zeros(len(orgs), np.int64)
-    offs[1:] = np.cumsum(lens)[:-1]
-    flat = np.zeros(int(lens.sum()) + 1, np.int8)  # never empty
-    for o, off in zip(orgs, offs):
-        flat[off : off + len(o)] = o
+    flat, offs = _flat_reads(orgs)
     return torch.from_numpy(flat).to(device), offs
 
 
@@ -182,7 +202,7 @@ def stage_a(flat, base, n_code, v_len, k, v_pad: int):
 
 
 # ---------------------------------------------------------------------------
-# stage B: speculative walks
+# stage B: the walks of each row's max nodes
 # ---------------------------------------------------------------------------
 
 
@@ -210,10 +230,10 @@ class _Tables:
 
 def _lookahead(tab, tq, node, fwd, k, max_la):
     """One walk step's tie-break lookahead for a set of jobs (all (n,)
-    tensors; tq (n, 1)) -> (md, m_out) and the overflow flag: the
-    la_body loop of mtr_tpu's _stage_b, run on the jobs still looking
-    ahead.  A tie list lives in T_DEV columns, candidate t*4 + j extending
-    tie t by base j."""
+    tensors; tq (n, 1)) -> (md, m_out), the overflow flag and each job's
+    table lookups: the la_body loop of mtr_tpu's _stage_b, run on the jobs
+    still looking ahead.  A tie list lives in T_DEV columns, candidate
+    t*4 + j extending tie t by base j."""
     dev = node.device
     i32 = torch.int32
     n = node.shape[0]
@@ -227,6 +247,7 @@ def _lookahead(tab, tq, node, fwd, k, max_la):
     # quirk of consensus.c:335)
     m_out = max_la + 1
     ovf = torch.zeros(n, dtype=torch.bool, device=dev)
+    looks = torch.zeros(n, dtype=torch.int64, device=dev)
     live = torch.arange(n, device=dev)
     for m in range(1, int(max_la.max()) + 1 if n else 0):
         live = live[m <= max_la[live]]
@@ -240,7 +261,7 @@ def _lookahead(tab, tq, node, fwd, k, max_la):
         tmp_f = (pm * (v_node % km))[:, None, None] + lsd
         tmp_b = msd * km[:, None, None] + (v_node // pm)[:, None, None]
         cand = torch.where(f3, lsd, msd).reshape(-1, 4 * T)
-        PLAIN_WORK["lookups"] += 4 * int(tcnt[live].sum())
+        looks[live] += 4 * tcnt[live]
         cnts = tab.lookup(tq[live],
                           torch.where(f3, tmp_f, tmp_b).reshape(-1, 4 * T))
         validc = (lane[None, :] < tcnt[live][:, None]).repeat_interleave(4, 1)
@@ -260,15 +281,17 @@ def _lookahead(tab, tq, node, fwd, k, max_la):
         live = live[cont]
         ties[live] = new_ties[cont]
         tcnt[live] = nt[cont].clamp(max=T)
-    return md, m_out, ovf
+    return md, m_out, ovf, looks
 
 
-def stage_b_plain(sv, sc, tq, node0, is_fwd, k, lmax):
+def stage_b_plain(sv, sc, tq, node0, is_fwd, k, lmax, work=None):
     """The walks of mtr_tpu's _stage_b as vectorised torch over jobs: sv/sc
     (Q, V) int32 tables of a chunk, per job tq (row), node0, is_fwd, k,
     lmax (J,) -> found (J,) bool, period (J,) int32, units, scores (J, 500)
     int32, ovf (J,) bool.  Each step runs on the jobs still walking, where
-    JAX's masked fori_loops carry the finished ones along unchanged."""
+    JAX's masked fori_loops carry the finished ones along unchanged.  The
+    walks' lookups and steps go to PLAIN_WORK, or per job into the dict
+    `work` when one is given."""
     dev = sv.device
     i32 = torch.int32
     J = node0.shape[0]
@@ -287,17 +310,20 @@ def stage_b_plain(sv, sc, tq, node0, is_fwd, k, lmax):
     period = torch.zeros(J, dtype=i32, device=dev)
     units = torch.zeros((J, MAX_PERIOD), dtype=i32, device=dev)
     scores = torch.zeros((J, MAX_PERIOD), dtype=i32, device=dev)
+    looks = torch.zeros(J, dtype=torch.int64, device=dev)
+    steps = torch.zeros(J, dtype=torch.int64, device=dev)
     for l in range(int(lmax.max()) if J else 0):
         act = torch.nonzero(~done & (l < lmax))[:, 0]
         if not act.numel():
             break
         a_node, a_fwd, a_k, a_k1 = node[act], fwd[act], k[act], k1[act]
         a_tq = tq[act]
-        # a step looks up the recorded node's score besides its lookahead
-        PLAIN_WORK["steps"] += act.numel()
-        PLAIN_WORK["lookups"] += act.numel()
         max_la = torch.ones_like(a_k) if l < 10 else a_k
-        md, m_out, a_ovf = _lookahead(tab, a_tq, a_node, a_fwd, a_k, max_la)
+        md, m_out, a_ovf, a_looks = _lookahead(tab, a_tq, a_node, a_fwd, a_k,
+                                               max_la)
+        # a step looks up the recorded node's score besides its lookahead
+        steps[act] += 1
+        looks[act] += 1 + a_looks
         ovf[act] |= a_ovf
         nf = 4 * (a_node % a_k1) + md // (4 ** (m_out - 1).clamp(0, 15)).to(i32)
         nb = (md % 4) * a_k1 + a_node // 4
@@ -313,239 +339,249 @@ def stage_b_plain(sv, sc, tq, node0, is_fwd, k, lmax):
         found[act[looped]] = l + 1 < MAX_PERIOD
         done[act[looped]] = True
         done |= l + 1 >= lmax
+    if work is None:
+        PLAIN_WORK["lookups"] += int(looks.sum())
+        PLAIN_WORK["steps"] += int(steps.sum())
+    else:
+        work.update(lookups=looks, steps=steps)
     return found, period, units, scores, ovf
 
 
-def dbg_walk(sv, sc, tq, node0, is_fwd, k, lmax):
-    """Stage B on one chunk's tables (shapes as stage_b_plain; every input
-    int32).  CUDA tensors launch the kernel (csrc/dbg_walk.cu) or the call
-    raises; CPU tensors run stage_b_plain."""
-    tensors = (sv, sc, tq, node0, is_fwd, k, lmax)
+def walk_rows_plain(sv, sc, maxfreq, nodes, n_nodes, k, lmax, tab, off,
+                    units, scores, used):
+    """The row kernel's function (csrc/dbg_walk.cu) as vectorised torch
+    over rows, on CPU tensors: stage_b_plain walks each open direction's
+    next walk_group(v_pad) listed max nodes of every gated row (maxfreq >
+    MIN_NUM_FREQ_UNIT) a round, until a round in which some walk finds a
+    unit (the lowest such rank wins) or the list ends.  A row is bad when a
+    walk overflowed T_DEV at or before the winner's rank in either
+    direction, or anywhere in a direction without a winner.
+
+    Inputs as the kernel's: sv / sc (Q, V) tables, maxfreq / n_nodes /
+    k / lmax (Q,), nodes (Q, 100).  Writes tab (Q, 4) int32 (fwd_period,
+    bwd_period, found_last, bad), off (Q, 2) int64 (each winning row's
+    offset, -1 without one), the winning rows cut to their periods (the
+    backward one reversed) into units / scores from used[0] on, and
+    advances used[0] past them (rows in round order; the kernel's order is
+    the card's)."""
+    i32 = torch.int32
+    q = sv.shape[0]
+    G = walk_group(sv.shape[1])
+    g = torch.arange(G)
+    col = torch.arange(MAX_PERIOD)
+    gated = maxfreq > MIN_NUM_FREQ_UNIT
+    nn = torch.where(gated, n_nodes.clamp(max=MAX_NUM_MAXNODES), 0).long()
+    nxt = torch.zeros((q, 2), dtype=torch.int64)
+    live = gated[:, None].repeat(1, 2)
+    per = torch.zeros((q, 2), dtype=i32)
+    offs = torch.full((q, 2), -1, dtype=torch.int64)
+    bad = torch.zeros(q, dtype=torch.bool)
+    while live.any():
+        rq, rd = torch.nonzero(live, as_tuple=True)
+        rank = nxt[rq, rd][:, None] + g
+        valid = rank < nn[rq][:, None]
+        jm, jg = torch.nonzero(valid, as_tuple=True)
+        jq = rq[jm]
+        work = {}
+        f, p, u, s, o = stage_b_plain(
+            sv, sc, jq.to(i32), nodes[jq, rank[jm, jg]].to(i32),
+            (rd[jm] == 0).to(i32), k[jq].to(i32), lmax[jq].to(i32), work)
+        found = torch.zeros_like(valid)
+        found[jm, jg] = f
+        ovf = torch.zeros_like(valid)
+        ovf[jm, jg] = o
+        job = torch.full(valid.shape, -1, dtype=torch.int64)
+        job[jm, jg] = torch.arange(len(jm))
+        has = found.any(1)
+        win = found.to(torch.uint8).argmax(1)
+        upto = torch.where(has, win, G - 1)
+        bad[rq[(ovf & (g[None, :] <= upto[:, None])).any(1)]] = True
+        need = jg <= upto[jm]  # the kernel stops the walks past a winner
+        PLAIN_WORK["lookups"] += int(work["lookups"][need].sum())
+        PLAIN_WORK["steps"] += int(work["steps"][need].sum())
+        hr = torch.nonzero(has)[:, 0]
+        if hr.numel():
+            wj = job[hr, win[hr]]
+            wp = p[wj].long()
+            src = torch.where(rd[hr][:, None] == 1,
+                              (wp[:, None] - 1 - col).clamp(min=0), col)
+            keep = col[None, :] < wp[:, None]
+            start = int(used[0])
+            stop = start + int(wp.sum())
+            units[start:stop] = torch.gather(u[wj], 1, src)[keep].to(
+                units.dtype)
+            scores[start:stop] = torch.gather(s[wj], 1, src)[keep].to(
+                scores.dtype)
+            used[0] = stop
+            per[rq[hr], rd[hr]] = wp.to(i32)
+            offs[rq[hr], rd[hr]] = start + torch.cumsum(wp, 0) - wp
+        nxt[rq, rd] += G
+        live[rq, rd] = ~has & (nxt[rq, rd] < nn[rq])
+    tab[:, :2] = per
+    tab[:, 2] = per[:, 1] > 0
+    tab[:, 3] = bad
+    off[:] = offs
+
+
+def walk_rows(sv, sc, maxfreq, nodes, n_nodes, k, lmax, tab, off, units,
+              scores, used):
+    """Stage B on one chunk's stage-A outputs, settled per row (arguments
+    as walk_rows_plain's; every input int32).  CUDA tensors launch the row
+    kernel (csrc/dbg_walk.cu) on the current stream, counted as
+    launch.dbg_walk, or the call raises; CPU tensors run walk_rows_plain.
+    Nothing waits for the card."""
+    tensors = (sv, sc, maxfreq, nodes, n_nodes, k, lmax, tab, off, units,
+               scores, used)
     if all(t.device.type == "cpu" for t in tensors):
-        return stage_b_plain(*tensors)
+        walk_rows_plain(*tensors)
+        return
     if not all(t.is_cuda and t.device == sv.device for t in tensors):
-        raise ValueError("dbg_walk: tensors must all be on one CUDA device "
+        raise ValueError("walk_rows: tensors must all be on one CUDA device "
                          "or all on the CPU")
-    launch, outs = prepare(*tensors)
-    if launch is not None:
-        launch()
-        TIMERS.count("launch.dbg_walk")
-    return outs
+    prepare(*tensors)()
+    TIMERS.count("launch.dbg_walk")
 
 
-def walk_blocks(tq: np.ndarray, per_block: int):
-    """The walk kernel's launch table for jobs reading table rows tq (J,):
-    perm (J,) int32, the job indices grouped by row (stable), and blocks
-    (n_blocks, 3) int32, per block its row, its first index into perm and
-    its job count (1 .. per_block, all of one row)."""
-    perm = np.argsort(tq, kind="stable")
-    st = tq[perm]
-    n = len(st)
-    run_start = np.flatnonzero(np.r_[True, st[1:] != st[:-1]]) if n else \
-        np.zeros(0, np.int64)
-    run_len = np.diff(np.r_[run_start, n])
-    nb = -(-run_len // per_block)
-    run = np.repeat(np.arange(len(run_start)), nb)
-    within = np.arange(int(nb.sum())) - np.repeat(np.cumsum(nb) - nb, nb)
-    first = run_start[run] + within * per_block
-    count = np.minimum(per_block, run_start[run] + run_len[run] - first)
-    blocks = np.stack([st[first], first, count], 1).astype(np.int32)
-    return perm.astype(np.int32), blocks.reshape(-1, 3)
-
-
-def prepare(sv, sc, tq, node0, is_fwd, k, lmax):
-    """Check a launch's inputs (CUDA tensors), allocate its outputs and
-    build its launch table -> (launch, outputs): launch() enqueues the
-    kernel on the current stream (None when there is no job).  dbg_walk
-    counts the launch; chip_smoke.py times launch() alone."""
+def prepare(sv, sc, maxfreq, nodes, n_nodes, k, lmax, tab, off, units,
+            scores, used):
+    """Check a launch's shapes, dtypes and layout (CUDA tensors) -> a bare
+    launcher that enqueues the row kernel on the current stream.  The
+    values the kernel trusts (k in 1..KMAX, lmax <= MAX_PERIOD, row
+    buffers of 2 x lmax a row) are checked on the host by
+    dbg_walk_device_batch before its upload.  walk_rows counts the launch;
+    chip_smoke.py times the launcher alone."""
     from mtr_tpu_torch.ops import _build
 
     q, v = sv.shape
-    J = node0.shape[0]
-    for name, t, shape in (("sv", sv, (q, v)), ("sc", sc, (q, v)),
-                           ("tq", tq, (J,)), ("node0", node0, (J,)),
-                           ("is_fwd", is_fwd, (J,)), ("k", k, (J,)),
-                           ("lmax", lmax, (J,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"dbg_walk: {name} must be int32 of shape "
+    i32, i64 = torch.int32, torch.int64
+    for name, t, dtype, shape in (
+            ("sv", sv, i32, (q, v)), ("sc", sc, i32, (q, v)),
+            ("maxfreq", maxfreq, i32, (q,)),
+            ("nodes", nodes, i32, (q, MAX_NUM_MAXNODES)),
+            ("n_nodes", n_nodes, i32, (q,)), ("k", k, i32, (q,)),
+            ("lmax", lmax, i32, (q,)), ("tab", tab, i32, (q, 4)),
+            ("off", off, i64, (q, 2)), ("used", used, i64, (1,))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"walk_rows: {name} must be {dtype} of shape "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"dbg_walk: {name} must be contiguous")
+            raise ValueError(f"walk_rows: {name} must be contiguous")
+    if units.dtype != torch.uint8 or scores.dtype != i32 or \
+            units.dim() != 1 or scores.shape != units.shape:
+        raise ValueError("walk_rows: units / scores must be uint8 / int32 "
+                         "row buffers of one length")
     if v not in V_BUCKETS:
-        raise ValueError(f"dbg_walk: table width {v} is not one of "
+        raise ValueError(f"walk_rows: table width {v} is not one of "
                          f"{V_BUCKETS}")
     if sv.data_ptr() % 16 or sc.data_ptr() % 16:
-        raise ValueError("dbg_walk: tables must be 16-byte aligned")
-    dev = sv.device
-    found = torch.empty(J, dtype=torch.bool, device=dev)
-    ovf = torch.empty(J, dtype=torch.bool, device=dev)
-    period = torch.empty(J, dtype=torch.int32, device=dev)
-    units = torch.zeros((J, MAX_PERIOD), dtype=torch.int32, device=dev)
-    scores = torch.zeros((J, MAX_PERIOD), dtype=torch.int32, device=dev)
-    outs = (found, period, units, scores, ovf)
-    if J == 0:
-        return None, outs
-    # the kernel reads row tq of the tables, codes below 4^k and up to
-    # lmax entries of a job's units / scores
-    tq_h, k_h, lmax_h = torch.stack([tq, k, lmax]).cpu().numpy()
-    if not (0 <= tq_h.min() and tq_h.max() < q):
-        raise ValueError("dbg_walk: tq outside the tables' rows")
-    if not (1 <= k_h.min() and k_h.max() <= KMAX):
-        raise ValueError(f"dbg_walk: k outside 1..{KMAX}")
-    if lmax_h.max() > MAX_PERIOD:
-        raise ValueError(f"dbg_walk: lmax above {MAX_PERIOD}")
+        raise ValueError("walk_rows: tables must be 16-byte aligned")
     lib = _build.library()
-    perm, blocks = walk_blocks(tq_h, lib.mtr_dbg_walk_jobs_per_block())
-    perm, blocks = (torch.from_numpy(a).to(dev) for a in (perm, blocks))
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    n_blocks = blocks.shape[0]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(sv.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (maxfreq, n_nodes, nodes, k, lmax, tab,
+                                   off, units, scores, used)]
 
     def launch():
-        err = lib.mtr_dbg_walk(
-            sv.data_ptr(), sc.data_ptr(), v, blocks.data_ptr(), n_blocks,
-            perm.data_ptr(), node0.data_ptr(), is_fwd.data_ptr(),
-            k.data_ptr(), lmax.data_ptr(), found.data_ptr(),
-            period.data_ptr(), units.data_ptr(), scores.data_ptr(),
-            ovf.data_ptr(), stream)
+        err = lib.mtr_dbg_walk_rows(sv.data_ptr(), sc.data_ptr(), v, q,
+                                    *ptrs, stream)
         if err != 0:
             raise RuntimeError(f"dbg_walk kernel launch failed: CUDA error "
-                               f"{err} (V={v}, J={J})")
+                               f"{err} (V={v}, rows={q})")
 
-    return launch, outs
+    return launch
 
 
 # ---------------------------------------------------------------------------
-# orchestration: chunks, jobs, winners, the host route
+# orchestration: one upload, chunks, one pull, the host route
 # ---------------------------------------------------------------------------
 
 
-def chunk_jobs(maxfreq, n_nodes, nodes):
-    """Speculative jobs of one chunk, from its stage-A outputs: for every
-    gated query (maxfreq > MIN_NUM_FREQ_UNIT), forward over its max nodes
-    in list order, then backward.  Returns numpy (gated rows, nodes per
-    gated row, tq, node0, is_fwd, rank) with jobs grouped by (row,
-    direction), rank ascending inside a group."""
-    gated = np.nonzero(maxfreq.cpu().numpy() > MIN_NUM_FREQ_UNIT)[0]
-    if not len(gated):
-        z = np.zeros(0, np.int64)
-        return gated, z, z, z, z, z
-    g = torch.from_numpy(gated).to(nodes.device)
-    nn = n_nodes[g].cpu().numpy().astype(np.int64)  # >= 1 where gated
-    nodes_g = nodes[g].cpu().numpy()
-    per = 2 * nn
-    grp = np.repeat(np.arange(len(gated)), per)
-    within = np.arange(int(per.sum())) - np.repeat(np.cumsum(per) - per, per)
-    is_fwd = within < nn[grp]
-    rank = np.where(is_fwd, within, within - nn[grp])
-    return gated, nn, gated[grp], nodes_g[grp, rank], is_fwd, rank
+def _upload_call(orgs, read_idx, qss, cols, device):
+    """One upload a call: the reads (int8, laid out as upload_reads lays
+    them), each query's int64 offset into them (its read's offset + qs)
+    and its int32 columns `cols` (n_code, V, k, lmax) as the rows of a
+    (4, n) block, in one buffer.  On a CUDA device the buffer is pinned and
+    copied without a wait.  -> (flat, base, cols) on `device`."""
+    flat_h, offs = _flat_reads(orgs)
+    n = len(read_idx)
+    o_cols = -(-8 * n // 16) * 16
+    o_flat = o_cols + -(-16 * n // 16) * 16
+    cuda = device.type == "cuda"
+    buf = torch.empty(o_flat + len(flat_h), dtype=torch.uint8,
+                      pin_memory=cuda)
+    a = buf.numpy()
+    a[: 8 * n].view(np.int64)[:] = offs[read_idx] + qss
+    a[o_cols : o_cols + 16 * n].view(np.int32).reshape(4, n)[:] = cols
+    a[o_flat:] = flat_h.view(np.uint8)
+    if cuda:
+        buf = buf.to(device, non_blocking=True)
+    return (buf[o_flat:].view(torch.int8), buf[: 8 * n].view(torch.int64),
+            buf[o_cols : o_cols + 16 * n].view(torch.int32).view(4, n))
 
 
-class _Rows:
-    """Unit/score rows of a batch's result, appended in blocks."""
-
-    def __init__(self):
-        self.units: list[np.ndarray] = []
-        self.scores: list[np.ndarray] = []
-        self.n = 0
-
-    def add(self, units: np.ndarray, scores: np.ndarray) -> np.ndarray:
-        self.units.append(units.astype(np.int32, copy=False))
-        self.scores.append(scores.astype(np.int32, copy=False))
-        rows = np.arange(self.n, self.n + len(units), dtype=np.int32)
-        self.n += len(units)
-        return rows
-
-    def stacked(self) -> tuple[np.ndarray, np.ndarray]:
-        if not self.n:
-            return (np.zeros((0, MAX_PERIOD), np.int32),
-                    np.zeros((0, MAX_PERIOD), np.int32))
-        return np.concatenate(self.units), np.concatenate(self.scores)
+def _pull(*tensors):
+    """Host arrays of the tensors after ONE wait, counted as walk_waits:
+    non-blocking copies into pinned memory, then the stream's synchronize
+    (span mtr.walk.wait).  CPU tensors are read in place at that point."""
+    TIMERS.count("walk_waits")
+    if tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for o, t in zip(outs, tensors):
+        o.copy_(t, non_blocking=True)
+    with TIMERS.span("mtr.walk.wait"):
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [o.numpy() for o in outs]
 
 
-def _keep_period(rows: np.ndarray, p: np.ndarray, reverse: bool):
-    """rows (N, 500) cut to each row's first p entries (zero after), the
-    first p reversed for backward walks."""
-    col = np.arange(MAX_PERIOD)[None, :]
-    if reverse:
-        rows = np.take_along_axis(rows, np.clip(p[:, None] - 1 - col, 0, None),
-                                  1)
-    return np.where(col < p[:, None], rows, 0)
-
-
-def _run_chunk(flat, offs, chunk, v_pad, q, res, rows, host):
-    """Stage A and B for one chunk of queries (indices into the batch);
-    fills res/rows for the queries the device settles and appends the rest
-    to host."""
-    read_idx, qss, qes, ks, V, n_code, lmax = q
-    dev = flat.device
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
-    base = torch.from_numpy(offs[read_idx[chunk]] + qss[chunk]).to(dev)
-    # the device analog of -c's "count table generation"
-    # (consensus.c:73-127), materialization included
-    with TIMERS.span("mtr.walk.stage_a", "count_table"):
-        sv, adj, maxfreq, nodes, n_nodes = stage_a(
-            flat, base, put(n_code[chunk]), put(V[chunk]), put(ks[chunk]),
-            v_pad)
-        gated, nn, tq, node0, is_fwd, rank = chunk_jobs(maxfreq, n_nodes,
-                                                        nodes)
-    if not len(gated):
-        return
-    n_jobs = len(tq)
-    TIMERS.count("walk_jobs", n_jobs)
-    qi = chunk[tq]
-    args = [put(a) for a in (tq, node0, is_fwd, ks[qi], lmax[qi])]
-    found = np.zeros(n_jobs, bool)
-    period = np.zeros(n_jobs, np.int32)
-    ovf = np.zeros(n_jobs, bool)
-    dev_rows = []  # per launch: (first job, units, scores) on the device
-    # launches and their pulls
-    with TIMERS.span("mtr.walk.kernel", "walk_kernel"):
-        for lo in range(0, n_jobs, JOBS_PER_LAUNCH):
-            hi = min(lo + JOBS_PER_LAUNCH, n_jobs)
-            f, p, u, s, o = dbg_walk(sv, adj, *(a[lo:hi] for a in args))
-            found[lo:hi] = f.cpu().numpy()
-            period[lo:hi] = p.cpu().numpy()
-            ovf[lo:hi] = o.cpu().numpy()
-            dev_rows.append((lo, u, s))
-
-    with TIMERS.span("mtr.walk.rows"):  # winners, their rows pulled
-        # per (row, direction) group: the first found node wins; an overflow
-        # at or before the winner (or anywhere, without one) could have
-        # changed the outcome, so the query goes to the host
-        size = np.repeat(nn, 2)
-        start = np.cumsum(size) - size
-        big = np.int64(1) << 40
-        win = np.minimum.reduceat(np.where(found, rank, big), start)
-        bad = np.logical_or.reduceat(ovf & (rank <= np.repeat(win, size)),
-                                     start)
-        bad_q = bad[0::2] | bad[1::2]
-        host.append(chunk[gated[bad_q]])
-        good = ~bad_q
-        qg = chunk[gated]
-        for d, key_row, key_per in ((0, "fwd_row", "fwd_period"),
-                                    (1, "bwd_row", "bwd_period")):
-            has = good & (win[d::2] < big)
-            if d == 1:
-                res["found_last"][qg[good]] = has[good]
-            if not has.any():
-                continue
-            wj = start[d::2][has] + win[d::2][has]
-            u = np.zeros((len(wj), MAX_PERIOD), np.int32)
-            s = np.zeros_like(u)
-            for lo, du, ds in dev_rows:
-                sel = np.nonzero((wj >= lo) & (wj < lo + du.shape[0]))[0]
-                if len(sel):
-                    idx = torch.from_numpy(wj[sel] - lo).to(dev)
-                    u[sel] = du[idx].cpu().numpy()
-                    s[sel] = ds[idx].cpu().numpy()
-            p = period[wj]
-            back = d == 1
-            res[key_row][qg[has]] = rows.add(_keep_period(u, p, back),
-                                             _keep_period(s, p, back))
-            res[key_per][qg[has]] = p
+def _device_rows(org_arrays, q, reach, device, res, host):
+    """The reachable queries on the device: one upload, stage A and the
+    row kernel a chunk (launches only), then one pull of the per-query
+    table and one of the winning rows.  Fills res for the queries the
+    device settles, appends the bad ones to host, and returns the rows
+    (units uint8, scores int32, flat)."""
+    read_idx, qss, ks, V, n_code, lmax = q
+    chunks = list(bucket_chunks(np.nonzero(reach)[0], V, V_MAX))
+    order = np.concatenate([c for _, c in chunks])
+    n = len(order)
+    # a winning row is at most lmax long, two a query
+    cap = max(1, 2 * int(np.maximum(lmax[order], 0).sum()))
+    with TIMERS.span("mtr.walk.upload"):
+        flat, base, cols = _upload_call(
+            org_arrays, read_idx[order], qss[order],
+            np.stack([n_code[order], V[order], ks[order], lmax[order]]),
+            device)
+        tab = torch.empty((n, 4), dtype=torch.int32, device=device)
+        off = torch.empty((n, 2), dtype=torch.int64, device=device)
+        units = torch.empty(cap, dtype=torch.uint8, device=device)
+        scores = torch.empty(cap, dtype=torch.int32, device=device)
+        used = torch.zeros(1, dtype=torch.int64, device=device)
+    lo = 0
+    for v_pad, chunk in chunks:
+        c = slice(lo, lo + len(chunk))
+        lo = c.stop
+        # the device analog of -c's "count table generation"
+        # (consensus.c:73-127)
+        with TIMERS.span("mtr.walk.stage_a", "count_table"):
+            sv, adj, maxfreq, nodes, n_nodes = stage_a(
+                flat, base[c], cols[0, c], cols[1, c], cols[2, c], v_pad)
+        with TIMERS.span("mtr.walk.kernel", "walk_kernel"):
+            walk_rows(sv, adj, maxfreq, nodes, n_nodes, cols[2, c],
+                      cols[3, c], tab[c], off[c], units, scores, used)
+    with TIMERS.span("mtr.walk.rows"):  # the results, pulled once
+        tab_h, off_h, used_h = _pull(tab, off, used)
+        m = int(used_h[0])
+        units_h, scores_h = _pull(units[:m], scores[:m])
+        TIMERS.count("walk_rows_bytes", units_h.nbytes + scores_h.nbytes)
+        bad = tab_h[:, 3] != 0
+        host.append(order[bad])
+        good = ~bad
+        qg = order[good]
+        for j, key in enumerate(("fwd_period", "bwd_period", "found_last")):
+            res[key][qg] = tab_h[good, j]
+        res["fwd_off"][qg] = off_h[good, 0]
+        res["bwd_off"][qg] = off_h[good, 1]
+    return units_h, scores_h
 
 
 _NATIVE_LOCK = threading.Lock()
@@ -570,27 +606,49 @@ def native_walks(orgs, lens, read_idx, qss, qes, ks):
     return out
 
 
-def _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res, rows):
-    """The queries h in one native.dbg_walk_batch2 call."""
+def flat_rows(res):
+    """A native.dbg_walk_batch2-form result (fwd_row / bwd_row into
+    (N, 500) unit / score rows) in the device route's form: the rows
+    flattened, and each direction's offset into them (fwd_off / bwd_off,
+    -1 without a row).  A walk's unit is units[off : off + period]."""
+    out = {key: res[key] for key in ("fwd_period", "bwd_period",
+                                     "found_last")}
+    for d in ("fwd", "bwd"):
+        row = np.asarray(res[f"{d}_row"], np.int64)
+        out[f"{d}_off"] = np.where(row >= 0, row * MAX_PERIOD, -1)
+    out["units"] = np.asarray(res["units"]).reshape(-1)
+    out["scores"] = np.asarray(res["scores"]).reshape(-1)
+    return out
+
+
+def _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res, units,
+                scores):
+    """The queries h in one native.dbg_walk_batch2 call; their rows follow
+    the device's.  Returns the rows extended."""
     orgs = [np.ascontiguousarray(o, np.int32) for o in org_arrays]
-    r = native_walks(orgs, lens, read_idx[h], qss[h], qes[h], ks[h])
-    # the native rows follow this batch's rows
-    off = rows.n
-    rows.add(r["units"], r["scores"])
-    for key in ("fwd_row", "bwd_row"):
-        res[key][h] = np.where(r[key] >= 0, r[key] + off, -1)
+    r = flat_rows(native_walks(orgs, lens, read_idx[h], qss[h], qes[h],
+                               ks[h]))
+    for d in ("fwd", "bwd"):
+        o = r[f"{d}_off"]
+        res[f"{d}_off"][h] = np.where(o >= 0, o + len(units), -1)
     for key in ("fwd_period", "bwd_period", "found_last"):
         res[key][h] = r[key]
+    return (np.concatenate([units, r["units"].astype(np.uint8)]),
+            np.concatenate([scores, r["scores"].astype(np.int32)]))
 
 
 def dbg_walk_device_batch(org_arrays, len_table, read_idx, qss, qes, ks,
                           device):
-    """Device equivalent of native.dbg_walk_batch2, on `device`: the same
-    result dict (fwd_row / bwd_row into units / scores rows, fwd_period /
-    bwd_period, found_last).  Queries outside the device's reach (range
-    wider than V_MAX, or a tie list over T_DEV at or before the winner) go
-    to the host engine in one call, counted as walk_fallback_queries.  A
-    kernel or launch error raises."""
+    """Device equivalent of native.dbg_walk_batch2, on `device`, in
+    flat_rows' form: fwd_off / bwd_off (int64) into the flat units (uint8
+    digits) / scores (int32), fwd_period / bwd_period, found_last.  The
+    card settles each query's walks (walk_rows) and the host waits for it
+    twice a call, however many chunks (the table, then the rows; each
+    counted as walk_waits).  Queries outside the device's reach (range
+    wider than V_MAX), or bad on the card (a tie list over T_DEV at or
+    before the winner), go to the host engine in one call, counted as
+    walk_fallback_queries.  A kernel or launch error raises."""
+    TIMERS.count("walk_device_calls")
     n = len(read_idx)
     read_idx = np.asarray(read_idx, np.int64)
     qss = np.asarray(qss, np.int64)
@@ -599,29 +657,29 @@ def dbg_walk_device_batch(org_arrays, len_table, read_idx, qss, qes, ks,
     lens = np.asarray(len_table, np.int64)
     check_queries(org_arrays, read_idx, qss, qes)
     res = {
-        "fwd_row": np.full(n, -1, np.int32),
-        "bwd_row": np.full(n, -1, np.int32),
+        "fwd_off": np.full(n, -1, np.int64),
+        "bwd_off": np.full(n, -1, np.int64),
         "fwd_period": np.zeros(n, np.int32),
         "bwd_period": np.zeros(n, np.int32),
         "found_last": np.zeros(n, np.int32),
     }
-    rows = _Rows()
     V = qes - qss + 1
     n_code = np.minimum(qes, lens[read_idx] - ks + 1) - qss
+    # the row kernel trusts 1 <= k <= KMAX and lmax <= MAX_PERIOD
     lmax = np.minimum(MAX_PERIOD, (qes - qss) // MIN_NUM_FREQ_UNIT)
     reach = (V <= V_MAX) & (ks >= 1) & (ks <= KMAX)
     host = [np.nonzero(~reach)[0]]
+    units = np.zeros(0, np.uint8)
+    scores = np.zeros(0, np.int32)
     if reach.any():
-        with TIMERS.span("mtr.walk.upload"):
-            flat, offs = upload_reads(org_arrays, device)
-        q = (read_idx, qss, qes, ks, V, n_code, lmax)
-        for v_pad, chunk in bucket_chunks(np.nonzero(reach)[0], V, V_MAX):
-            _run_chunk(flat, offs, chunk, v_pad, q, res, rows, host)
+        units, scores = _device_rows(
+            org_arrays, (read_idx, qss, ks, V, n_code, lmax), reach,
+            torch.device(device), res, host)
     h = np.sort(np.concatenate(host))  # batch order keeps the k runs
     if len(h):
         TIMERS.count("walk_fallback_queries", len(h))
         with TIMERS.span("mtr.walk.host_route", "walk_host_route"):
-            _host_route(org_arrays, lens, read_idx, qss, qes, ks, h, res,
-                        rows)
-    res["units"], res["scores"] = rows.stacked()
+            units, scores = _host_route(org_arrays, lens, read_idx, qss, qes,
+                                        ks, h, res, units, scores)
+    res["units"], res["scores"] = units, scores
     return res

@@ -27,7 +27,11 @@ from mtr_tpu_torch import native
 from mtr_tpu_torch.chaining import chain_records
 from mtr_tpu_torch.config import DEFAULT_CONFIG, MTRConfig
 from mtr_tpu_torch.io.fasta import Read, iter_fasta
-from mtr_tpu_torch.ops.dbg_device import dbg_walk_device_batch, native_walks
+from mtr_tpu_torch.ops.dbg_device import (
+    dbg_walk_device_batch,
+    flat_rows,
+    native_walks,
+)
 from mtr_tpu_torch.ops.directional_index import (
     make_di_compute_k,
     make_di_manhattan_sharded,
@@ -1051,19 +1055,20 @@ def _filtered_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a, device):
 
 def _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a, k_a):
     """RangeQuery objects for the queries whose walk found a unit, with
-    their candidate records (mtr_tpu/pipeline.py:1419-1462)."""
+    their candidate records (mtr_tpu/pipeline.py:1419-1462).  res is in
+    flat_rows' form: a walk's unit is units[off : off + period]."""
     n_q = len(ridx_a)
-    frow, brow = res["fwd_row"], res["bwd_row"]
-    units_rows, scores_rows = res["units"], res["scores"]
+    f_off, b_off = res["fwd_off"], res["bwd_off"]
+    units, scores = res["units"], res["scores"]
     unit_cache: dict = {}  # unit bytes -> (string, freq_2mer)
-    hits = np.nonzero((frow[:n_q] >= 0) | (brow[:n_q] >= 0))[0]
+    hits = np.nonzero((f_off[:n_q] >= 0) | (b_off[:n_q] >= 0))[0]
     h_ridx = ridx_a[hits].tolist()
     h_qs = qs_a[hits].tolist()
     h_qe = qe_a[hits].tolist()
     h_w = w_a[hits].tolist()
     h_k = k_a[hits].tolist()
-    h_f = frow[hits].tolist()
-    h_b = brow[hits].tolist()
+    h_f = f_off[hits].tolist()
+    h_b = b_off[hits].tolist()
     h_fp = res["fwd_period"][hits].tolist()
     h_bp = res["bwd_period"][hits].tolist()
     h_found = res["found_last"][hits].tolist()
@@ -1073,13 +1078,14 @@ def _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a, k_a):
         st = states[h_ridx[hi]]
         q = RangeQuery(h_ridx[hi], h_qs[hi], h_qe[hi], h_w[hi], h_k[hi])
         q.found = h_found[hi]
-        for row, period in ((h_f[hi], h_fp[hi]), (h_b[hi], h_bp[hi])):
-            if row < 0:
+        for off, period in ((h_f[hi], h_fp[hi]), (h_b[hi], h_bp[hi])):
+            if off < 0:
                 continue
-            ukey = units_rows[row][:period].tobytes()
+            seg = units[off : off + period]
+            ukey = seg.tobytes()
             ent = unit_cache.get(ukey)
             if ent is None:
-                unit = units_rows[row][:period].tolist()
+                unit = seg.tolist()
                 ent = (decode_bases(unit), freq_2mer_array(unit))
                 unit_cache[ukey] = ent
             cand = RepeatRecord.__new__(RepeatRecord)
@@ -1089,7 +1095,7 @@ def _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a, k_a):
             cand.kmer = q.k
             cand.rep_period = period
             cand.string = ent[0]
-            cand.string_score = scores_rows[row][:period].copy()
+            cand.string_score = scores[off : off + period].copy()
             cand.freq_2mer = list(ent[1])
             q.candidates.append(cand)
         queries.append(q)
@@ -1130,6 +1136,7 @@ def walk_batch(states: list[ReadState], cfg: MTRConfig, pos_sel=None,
                                           k_a, device)
                 else:
                     res = native_walks(orgs, lens, ridx_a, qs_a, qe_a, k_a)
+                res = flat_rows(res)
         with TIMERS.span("mtr.walk.hits", "walks"):
             if res is not None:
                 queries = _hit_queries(states, res, ridx_a, qs_a, qe_a, w_a,

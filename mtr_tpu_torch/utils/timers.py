@@ -270,7 +270,7 @@ class Timers:
         ) if t.get(k)]
         extras = [
             ("walks", "DBG walks (native)"),
-            ("walk_kernel", "device walk launches + pull"),
+            ("walk_kernel", "device walk launches"),
             ("walk_host_route", "device walks' host route"),
             ("dp_fill", "wrap-DP host engine"),
             ("dp_dispatch", "wrap-DP device dispatch"),

@@ -1,10 +1,13 @@
 """The port's DBG walks against mtr_tpu's: stage A tables against JAX's
-_stage_a at each of its buckets, stage_b_plain against _stage_b, and
-dbg_walk_device_batch against JAX's on the four fuzz sets of
-tests/test_dbg_device.py and against native.dbg_walk_batch2 on a larger
-set with whale ranges and tie storms.  Every output is an integer:
-compared exactly.  Result rows are compared per query (unit and score
-rows up to each period), since row numbers depend on the engine."""
+_stage_a at each of its buckets, stage_b_plain against _stage_b, the row
+walk (walk_rows' plain twin) against the earlier speculative design with
+host winner selection (testutil/walk_cases.speculative_rows) on golden
+batches, fuzz sets and chosen edges, and dbg_walk_device_batch against
+JAX's on the four fuzz sets of tests/test_dbg_device.py and against
+native.dbg_walk_batch2 on a larger set with whale ranges and tie storms,
+with at most two waits a call however many chunks.  Every output is an
+integer: compared exactly.  Result rows are compared per query (unit and
+score rows up to each period), since row offsets depend on the engine."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,11 +16,13 @@ import torch
 
 from mtr_tpu import native
 from mtr_tpu.ops import dbg_device as jd
+from mtr_tpu_torch.testutil import walk_cases as wc
 from mtr_tpu_torch.utils.timers import TIMERS
 from mtr_tpu_torch.ops import dbg_device as td
 from tests.test_dbg_device import make_read
 
 CPU = torch.device("cpu")
+GOLDEN = "tests/golden"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -28,26 +33,8 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def canon(res, n):
-    """Per-query view of a walk result: found_last, periods, and each
-    direction's unit / score row cut to its period (zeros without one)."""
-    out = {key: np.asarray(res[key][:n]) for key in
-           ("found_last", "fwd_period", "bwd_period")}
-    col = np.arange(td.MAX_PERIOD)[None, :]
-    for d in ("fwd", "bwd"):
-        row = np.asarray(res[f"{d}_row"][:n])
-        has = row >= 0
-        out[f"{d}_has"] = has
-        keep = has[:, None] & (col < out[f"{d}_period"][:, None])
-        for key in ("units", "scores"):
-            full = np.zeros((n, td.MAX_PERIOD), np.int64)
-            full[has] = res[key][row[has]]
-            out[f"{d}_{key}"] = np.where(keep, full, 0)
-    return out
-
-
 def assert_same(got, want, n):
-    g, w = canon(got, n), canon(want, n)
+    g, w = wc.canonical(got, n), wc.canonical(want, n)
     for key in w:
         np.testing.assert_array_equal(g[key], w[key], err_msg=key)
 
@@ -163,12 +150,26 @@ def _walk_set(seed):
     return orgs, lens, queries
 
 
+def _jobs(maxfreq, n_nodes, nodes):
+    """The speculative jobs of a chunk: for every gated row, forward over
+    its max nodes in list order, then backward -> numpy (tq, node0,
+    is_fwd)."""
+    gated = np.nonzero(maxfreq.numpy() > td.MIN_NUM_FREQ_UNIT)[0]
+    nn = n_nodes.numpy()[gated].astype(np.int64)
+    per = 2 * nn
+    grp = np.repeat(np.arange(len(gated)), per)
+    within = np.arange(int(per.sum())) - np.repeat(np.cumsum(per) - per, per)
+    is_fwd = within < nn[grp]
+    rank = np.where(is_fwd, within, within - nn[grp])
+    return gated[grp], nodes.numpy()[gated][grp, rank], is_fwd
+
+
 def test_stage_b_plain_matches_jax():
     orgs, lens, queries = _walk_set(11)
     ridx, qs, qe, k = as_arrays(queries)
     sv, adj, maxfreq, nodes, n_nodes = _port_stage_a(orgs, lens, queries, 1024)
-    gated, nn, tq, node0, is_fwd, rank = td.chunk_jobs(maxfreq, n_nodes, nodes)
-    assert len(gated) > len(queries) // 2
+    tq, node0, is_fwd = _jobs(maxfreq, n_nodes, nodes)
+    assert len(np.unique(tq)) > len(queries) // 2
     lmax = np.minimum(td.MAX_PERIOD, (qe - qs) // td.MIN_NUM_FREQ_UNIT)
     job = [a.astype(np.int32) for a in (node0, is_fwd, k[tq], lmax[tq])]
     got = td.stage_b_plain(sv, adj, torch.from_numpy(tq.astype(np.int32)),
@@ -183,20 +184,192 @@ def test_stage_b_plain_matches_jax():
     assert found.any() and ovf.any() and not found.all()
 
 
-def test_dbg_walk_cpu_tensors_run_plain():
+def test_walk_rows_cpu_tensors_run_plain():
+    """walk_rows on CPU tensors runs the plain twin (no launch counted),
+    writing exactly what walk_rows_plain writes; a tensor on another
+    device raises."""
     orgs, lens, queries = _walk_set(12)
-    sv, adj, maxfreq, nodes, n_nodes = _port_stage_a(orgs, lens, queries, 1024)
-    _, _, tq, node0, is_fwd, _ = td.chunk_jobs(maxfreq, n_nodes, nodes)
     ridx, qs, qe, k = as_arrays(queries)
-    job = [torch.from_numpy(a.astype(np.int32)) for a in
-           (tq, node0, is_fwd, k[tq], np.minimum(500, (qe - qs)[tq] // 5))]
+    tabs = _port_stage_a(orgs, lens, queries, 1024)
+    rows = (torch.from_numpy(k.astype(np.int32)),
+            torch.from_numpy(np.minimum(500, (qe - qs) // 5).astype(np.int32)))
+    q, cap = len(queries), 2 * 500 * len(queries)
+
+    def outs():
+        return (torch.zeros((q, 4), dtype=torch.int32),
+                torch.zeros((q, 2), dtype=torch.int64),
+                torch.zeros(cap, dtype=torch.uint8),
+                torch.zeros(cap, dtype=torch.int32),
+                torch.zeros(1, dtype=torch.int64))
+
     launches = TIMERS.counters["launch.dbg_walk"]
-    for g, w in zip(td.dbg_walk(sv, adj, *job),
-                    td.stage_b_plain(sv, adj, *job)):
+    got, want = outs(), outs()
+    td.walk_rows(*tabs, *rows, *got)
+    td.walk_rows_plain(*tabs, *rows, *want)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert TIMERS.counters["launch.dbg_walk"] == launches
+    assert int(got[4][0]) > 0 and got[0][:, 3].any()  # rows; a bad query
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
-        td.dbg_walk(sv.to("meta"), adj, *job)
+        td.walk_rows(tabs[0].to("meta"), *tabs[1:], *rows, *outs())
+
+
+# ------------------------------------ the row walk vs the speculative design
+
+
+def _golden_batch(name, n_reads):
+    orgs, lens, (ridx, qs, qe, _, k) = wc.batch_queries(
+        f"{GOLDEN}/{name}.fasta", n_reads)
+    return orgs, lens, np.stack([ridx, qs, qe, k], 1)
+
+
+def _whales_and_storms():
+    orgs, lens, queries = _whale_set()
+    return orgs, lens, np.asarray(queries)
+
+
+ROW_SETS = {
+    "golden_multi20_100x10": lambda: _golden_batch("multi20_100x10", 4),
+    "golden_multitr_gen_2_5_10_20":
+        lambda: _golden_batch("multitr_gen_2_5_10_20", 2),
+    "whales_and_storms": _whales_and_storms,
+    "walk_set": lambda: _walk_set(15),
+    "tie_storms": lambda: _fuzz_tie_storms(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROW_SETS))
+def test_row_walk_matches_speculative(name):
+    """The row walk (rank groups, stop at the first group that loops)
+    equals every max node walked both ways with the host's winner rule:
+    periods, found_last, the bad flag, and the winning rows cut to their
+    periods, reversed for backward walks, chunk by chunk."""
+    orgs, lens, queries = ROW_SETS[name]()
+    n_rows = n_won = 0
+    for v_pad, chunk in wc.chunks_of(orgs, lens, queries):
+        want = wc.speculative_rows(*chunk)
+        got = wc.run_rows(*chunk)
+        assert not wc.differing(got, want), (v_pad, wc.differing(got, want))
+        n_rows += len(want["bad"])
+        n_won += int((want["fwd_period"] > 0).sum())
+    assert n_rows == len(queries) and n_won > 0
+
+
+@pytest.fixture(scope="module")
+def edges():
+    return wc.edge_chunk()
+
+
+@pytest.fixture(scope="module")
+def wide_edges():
+    return wc.edge_chunk(td.WIDE_V)
+
+
+@pytest.mark.parametrize("kind", wc.EDGE_KINDS)
+def test_row_walk_edges(kind, edges):
+    """Rows with chosen max-node lists (testutil/walk_cases.edge_chunk):
+    the row walk equals the speculative design on each, with the bad flag
+    and the winners the rank-group rule expects."""
+    _check_edges(kind, edges)
+
+
+@pytest.mark.parametrize("kind", wc.EDGE_KINDS)
+def test_row_walk_edges_wide_group(kind, wide_edges):
+    """The same rows in tables WIDE_V wide, where a direction walks eight
+    max nodes at once: the same bad flags and winners."""
+    assert td.walk_group(td.WIDE_V) > td.walk_group(td.WIDE_V // 2)
+    _check_edges(kind, wide_edges)
+
+
+def _check_edges(kind, edges):
+    chunk, kinds, expect = edges
+    rows = [r for r, kd in enumerate(kinds) if kd == kind]
+    assert rows
+    sel = torch.tensor(rows)
+    part = tuple(t[sel].contiguous() for t in chunk)
+    got = wc.run_rows(*part)
+    assert not wc.differing(got, wc.speculative_rows(*part))
+    sv, sc, maxfreq, nodes, n_nodes, k, lmax = part
+    for i, r in enumerate(rows):
+        bad, fwd_rank, bwd_rank = expect[r]
+        assert bool(got["bad"][i]) == bad
+        for name, d, rank in (("fwd", 1, fwd_rank), ("bwd", 0, bwd_rank)):
+            if bad:
+                continue
+            if rank < 0:
+                assert got[f"{name}_period"][i] == 0
+                continue
+            # the winner is the walk from the list's rank-th node
+            one = td.stage_b_plain(
+                sv, sc, torch.tensor([i], dtype=torch.int32),
+                nodes[i, rank : rank + 1], torch.tensor([d], dtype=torch.int32),
+                k[i : i + 1], lmax[i : i + 1])
+            assert bool(one[0][0]) and got[f"{name}_period"][i] == int(one[1][0])
+    if kind == "ovf_at_winner":  # the winner itself overflowed
+        one = td.stage_b_plain(sv, sc, torch.tensor([0], dtype=torch.int32),
+                               nodes[0, :1], torch.tensor([0], dtype=torch.int32),
+                               k[:1], lmax[:1])
+        assert bool(one[0][0]) and bool(one[4][0])
+    if kind == "period_500":  # every walk loops at step 500: no unit
+        one = td.stage_b_plain(sv, sc, torch.tensor([0], dtype=torch.int32),
+                               nodes[0, :1], torch.tensor([1], dtype=torch.int32),
+                               k[:1], lmax[:1])
+        assert int(one[1][0]) == td.MAX_PERIOD and not bool(one[0][0])
+
+
+def test_plain_work_counts_walks_up_to_the_winner(wide_edges):
+    """walk_rows_plain adds to PLAIN_WORK only the walks up to each
+    direction's winner (the kernel stops the rest of the group): on a row
+    whose rank 1 wins among eight, the lookups and steps of ranks 0 and 1
+    both ways."""
+    chunk, kinds, expect = wide_edges
+    r = next(i for i, (kd, e) in enumerate(zip(kinds, expect))
+             if kd == "ovf_after_winner" and e == (False, 1, 1))
+    part = tuple(t[r : r + 1].contiguous() for t in chunk)
+    sv, sc, maxfreq, nodes, n_nodes, k, lmax = part
+    assert int(n_nodes[0]) > 2 and td.walk_group(sv.shape[1]) >= n_nodes[0]
+    work = {}
+    i32 = torch.int32
+    td.stage_b_plain(sv, sc, torch.zeros(4, dtype=i32),
+                     nodes[0, [0, 1, 0, 1]],
+                     torch.tensor([1, 1, 0, 0], dtype=i32),
+                     k.repeat(4), lmax.repeat(4), work)
+    td.PLAIN_WORK.update(lookups=0, steps=0)
+    wc.run_rows(*part)
+    assert td.PLAIN_WORK == {"lookups": int(work["lookups"].sum()),
+                             "steps": int(work["steps"].sum())}
+
+
+def test_walk_waits_at_most_two_per_call(monkeypatch):
+    """With CHUNK_ELEMS cut so that a call runs ten chunks or more, the
+    device route still waits at most twice a call (walk_waits), calls no
+    .cpu() / .item() / .tolist() on the way, and its result is the
+    native engine's."""
+    orgs, lens, queries = _golden_batch("multi20_100x10", 2)
+    arrays = tuple(queries.T)
+    monkeypatch.setattr(td, "CHUNK_ELEMS", 1 << 12)
+    syncs = []
+    for name in ("cpu", "item", "tolist"):
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda self, *a, _r=real, _n=name, **kw:
+                            syncs.append(_n) or _r(self, *a, **kw))
+    before = TIMERS.snapshot()[1]
+    got = td.dbg_walk_device_batch(orgs, lens, *arrays, CPU)
+    after = TIMERS.snapshot()[1]
+    monkeypatch.undo()
+
+    def grew(key):
+        return after.get(key, 0) - before.get(key, 0)
+
+    assert grew("walk_device_calls") == 1
+    assert grew("stage_a_calls") >= 10
+    assert grew("walk_waits") <= 2
+    assert grew("walk_rows_bytes") > 0
+    assert not syncs
+    want = native.dbg_walk_batch2(
+        [np.ascontiguousarray(o, np.int32) for o in orgs], lens, *arrays)
+    assert_same(got, want, len(queries))
 
 
 # ------------------------------------------------ whole batch vs JAX
@@ -280,7 +453,7 @@ def test_batch_matches_jax(name):
 # ---------------------------------------- whole batch vs native engine
 
 
-def test_batch_matches_native_with_whales_and_storms():
+def _whale_set():
     """~500 queries: the k sweeps of periodic reads, two whale ranges (V
     2,400 and 3,000) walked on the device, and a homopolymer tie storm
     whose queries take the host route."""
@@ -303,6 +476,12 @@ def test_batch_matches_native_with_whales_and_storms():
     orgs.append(storm)
     lens.append(800)
     queries += [(len(orgs) - 1, 3, 795, k) for k in (2, 4, 6)]
+    return orgs, lens, queries
+
+
+def test_batch_matches_native_with_whales_and_storms():
+    """_whale_set through the whole route against the native engine."""
+    orgs, lens, queries = _whale_set()
     arrays = as_arrays(queries)
     before = TIMERS.counters["walk_fallback_queries"]
     got = td.dbg_walk_device_batch(orgs, lens, *arrays, CPU)
@@ -311,7 +490,7 @@ def test_batch_matches_native_with_whales_and_storms():
         [np.ascontiguousarray(o, np.int32) for o in orgs], lens, *arrays)
     assert_same(got, want, len(queries))
     assert 0 < n_host < len(queries) // 10
-    assert got["found_last"][-5] or got["fwd_row"][-5] >= 0  # a whale walked
+    assert got["found_last"][-5] or got["fwd_off"][-5] >= 0  # a whale walked
 
 
 def test_batch_sends_wide_ranges_to_host(monkeypatch):
@@ -378,46 +557,7 @@ def test_native_walks_from_many_threads():
         assert (want[i]["fwd_row"] >= 0).any()
 
 
-# ------------------------------------------ the walk kernel's launch table
-
-
-@pytest.mark.parametrize("per_block", [1, 2, 3])
-def test_walk_blocks_group_jobs_by_row(per_block):
-    """walk_blocks' table for the kernel's blocks (one table row and up
-    to per_block of its jobs a block): every job in exactly one block, a
-    block's jobs all of its row, row order stable; and the walks in the
-    table's job order, put back in place, are JAX's _stage_b results, for
-    jobs handed over in a shuffled order."""
-    orgs, lens, queries = _walk_set(13)
-    ridx, qs, qe, k = as_arrays(queries)
-    sv, adj, maxfreq, nodes, n_nodes = _port_stage_a(orgs, lens, queries, 1024)
-    _, _, tq, node0, is_fwd, _ = td.chunk_jobs(maxfreq, n_nodes, nodes)
-    lmax = np.minimum(td.MAX_PERIOD, (qe - qs) // td.MIN_NUM_FREQ_UNIT)
-    jobs = np.stack([tq, node0, is_fwd, k[tq], lmax[tq]], 1).astype(np.int32)
-    jobs = jobs[np.random.default_rng(per_block).permutation(len(jobs))]
-    perm, blocks = td.walk_blocks(jobs[:, 0], per_block)
-
-    assert perm.dtype == blocks.dtype == np.int32
-    np.testing.assert_array_equal(np.sort(perm), np.arange(len(jobs)))
-    assert ((blocks[:, 2] >= 1) & (blocks[:, 2] <= per_block)).all()
-    spans = [np.arange(f, f + n) for _, f, n in blocks]
-    np.testing.assert_array_equal(np.concatenate(spans), np.arange(len(jobs)))
-    for (row, f, n), span in zip(blocks, spans):
-        assert (jobs[perm[span], 0] == row).all()
-    for row in np.unique(jobs[:, 0]):  # stable inside a row
-        mine = perm[jobs[perm, 0] == row]
-        assert (np.diff(mine) > 0).all()
-
-    got = td.stage_b_plain(sv, adj, *map(torch.from_numpy,
-                                         jobs[perm].T.copy()))
-    want = jd._stage_b(jnp.take(jnp.asarray(sv.numpy()), jobs[:, 0], axis=0),
-                       jnp.take(jnp.asarray(adj.numpy()), jobs[:, 0], axis=0),
-                       *map(jnp.asarray, jobs[:, 1:].T))
-    inv = np.argsort(perm)
-    for name, g, w in zip(("found", "period", "units", "scores", "ovf"),
-                          got, want):
-        np.testing.assert_array_equal(g.numpy()[inv], np.asarray(w),
-                                      err_msg=name)
+# ------------------------------------------ the walk kernel's lookup
 
 
 def kernel_lookup(sv, sc, tq, keys, stride):
@@ -465,3 +605,4 @@ def test_sampled_search_level_is_searchsorted(stride):
     want = tab.lookup(torch.from_numpy(tq)[:, None], torch.from_numpy(keys))
     np.testing.assert_array_equal(got, want.numpy())
     assert (got > 0).any() and (got == 0).any()
+

@@ -278,7 +278,8 @@ def test_device_backend_refuses_device_walks(monkeypatch):
         return TIMERS.counters[key] - before.get(key, 0)
 
     assert grew("stage_a_calls") > 0
-    assert grew("walk_jobs") > 0
+    assert grew("walk_device_calls") > 0
+    assert grew("walk_waits") <= 2 * grew("walk_device_calls")
     # the one host-route query of this set goes to the native engine
     assert sum(native_walks) == grew("walk_fallback_queries")
 
