@@ -77,33 +77,25 @@ Phases, in order; any failure exits non-zero before the result line:
      seconds that 3c and 3e spent on the reader thread;
   3d. the hybrid with MTR_TPU_MF_FILTER=1 (the walk pre-filter on the
      card), byte-identical, with the queries it filtered out;
-  4. counts kernel times with CUDA events against its first design
-     (csrc/wrap_dp_counts_block.cu) in turns, at the bench's GCUPS shapes
+  4. counts kernel times with CUDA events at the bench's GCUPS shapes
      and at unit 400, with GCUPS, bound and share of bound; the plain
      version's time at the first shape;
-  4d. the hybrid's bench run under torch.profiler with the counts kernel
-     and with its first design: counts-kernel device time, launches, jobs
-     and longest rep_len a launch;
   4b. every consensus launch of phase 3c's bench run (its inputs recorded
-     by Spies) replayed with CUDA events, the first design
-     (csrc/wrap_dp_consensus_v1.cu) and the kernel in turns: ms a launch,
-     the run's sum, the three heaviest launches, bound and share; the
-     kernel against the plain version on the heaviest launch (zero
-     tolerance) and the plain version's time there;
+     by Spies) replayed with CUDA events: ms a launch, the run's sum, the
+     three heaviest launches, bound and share; the kernel against the
+     plain version on the heaviest launch (zero tolerance) and the plain
+     version's time there;
   4c. every row-kernel launch of that run (a chunk's stage-A outputs)
-     replayed the same way against the first design (csrc/dbg_walk_v1.cu
-     on the chunk's speculative jobs: every listed max node both ways),
-     with rows, gated rows, jobs, V bucket and winning-row entries a
-     launch; then, heaviest first within WALK_PLAIN_BUDGET_S, the kernel
-     against walk_rows_plain on the launch (zero tolerance) and the
-     lookups and steps it counts there, for the bound;
+     replayed the same way, with rows, gated rows, V bucket and
+     winning-row entries a launch; then, heaviest first within
+     WALK_PLAIN_BUDGET_S, the kernel against walk_rows_plain on the
+     launch (zero tolerance) and the lookups and steps it counts there,
+     for the bound;
   4e. every DI launch of phases 3c (Manhattan) and 3e (Pearson), recorded
      by Spies, replayed: the kernel against its plain version (zero
-     tolerance), and with CUDA events against the first design
-     (csrc/directional_index_v1.cu, a launch a pass, summed over the
-     group's passes) in turns, summed over the run; at the heaviest launch
-     of each, the two in turns, the group with its copies, the plain
-     version, the host passes and the bound;
+     tolerance), and timed with CUDA events, summed over the run; at the
+     heaviest launch of each, the kernel, the group with its copies, the
+     plain version, the host passes and the bound;
   5a. the CLI's other modes, each `python -m mtr_tpu_torch.cli` in a new
      process against a golden that mtr_tpu's host backend wrote
      (scripts/write_port_goldens.py): -p under --backend hybrid and under
@@ -1479,6 +1471,11 @@ def event_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def kernel_ms(fn, n):
+    """The least of two event_ms readings of fn, n calls each."""
+    return min(event_ms(fn, n), event_ms(fn, n))
+
+
 def in_turns(variants, n):
     """{name: ms} of each bare launcher, timed in turns (a, b, b, a), the
     least of each name's two turns."""
@@ -1487,29 +1484,6 @@ def in_turns(variants, n):
     for name in names + names[::-1]:
         ms[name].append(event_ms(variants[name], n))
     return {name: min(v) for name, v in ms.items()}
-
-
-def spec_jobs(args):
-    """The speculative jobs of one recorded row-kernel launch (the earlier
-    design's: every listed max node of a gated row, forward then
-    backward), as int32 CUDA tensors (tq, node0, is_fwd, k, lmax) for the
-    first design's kernel."""
-    import torch
-
-    sv, _, maxfreq, nodes, n_nodes, k, lmax = args[:7]
-    gated = np.nonzero(maxfreq.cpu().numpy() > 5)[0]
-    nn = n_nodes.cpu().numpy()[gated].astype(np.int64)
-    per = 2 * nn
-    grp = np.repeat(np.arange(len(gated)), per)
-    within = np.arange(int(per.sum())) - np.repeat(np.cumsum(per) - per, per)
-    is_fwd = within < nn[grp]
-    rank = np.where(is_fwd, within, within - nn[grp])
-    tq = gated[grp]
-    k_h, lmax_h = k.cpu().numpy(), lmax.cpu().numpy()
-    cols = (tq, nodes.cpu().numpy()[gated][grp, rank], is_fwd, k_h[tq],
-            lmax_h[tq])
-    return [torch.from_numpy(np.ascontiguousarray(c, np.int32)).cuda()
-            for c in cols]
 
 
 def walk_bound(args, lookups, steps, row_entries):
@@ -1542,36 +1516,6 @@ def cons_bound(scal):
     return bound_ms(ops, int(rep_len.sum()) + len(scal) * 500 * 9 * 4)
 
 
-def bare_walk(fn, args):
-    """A bare launcher of the first design's walk kernel (one warp a
-    speculative job, csrc/dbg_walk_v1.cu) on one recorded row-kernel
-    launch: every listed max node of every gated row walked both ways, as
-    the earlier route launched it; and its job count."""
-    import ctypes
-
-    import torch
-
-    sv, adj = args[:2]
-    jobs = spec_jobs(args)
-    J, dev = jobs[0].numel(), sv.device
-    outs = (torch.zeros(J, dtype=torch.bool, device=dev),
-            torch.zeros(J, dtype=torch.int32, device=dev),
-            torch.zeros((J, 500), dtype=torch.int32, device=dev),
-            torch.zeros((J, 500), dtype=torch.int32, device=dev),
-            torch.zeros(J, dtype=torch.bool, device=dev))
-    ptrs = ([sv.data_ptr(), adj.data_ptr(), sv.shape[1]]
-            + [a.data_ptr() for a in jobs] + [J]
-            + [o.data_ptr() for o in outs]
-            + [ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)])
-
-    def run(keep=(jobs, outs)):  # the launch reads them by address
-        if J:
-            err = fn(*ptrs)
-            check(err == 0, f"walk kernel launch failed: CUDA error {err}")
-
-    return run, J
-
-
 def row_walk(args):
     """A bare launcher of the row kernel on one recorded launch's inputs,
     with outputs of its own (the slot counter zeroed before each launch,
@@ -1598,86 +1542,32 @@ def row_walk(args):
     return run, outs
 
 
-def bare_cons_v1(lib, args):
-    """A bare launcher of the consensus kernels' first design (fill +
-    traceback, csrc/wrap_dp_consensus_v1.cu) on one launch's inputs: its
-    jobs split by span 128 / 256 / 512 as the first design's batcher
-    launched them, unit rows padded to the span."""
-    import ctypes
-
-    import torch
-
-    flat, starts, scal, unit, u_span, factor = args
-    ul = scal[:, 1].cpu().numpy()
-    span_of = np.select([ul <= 128, ul <= 256], [128, 256], 512)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    calls = []
-    for span in (128, 256, 512):
-        idx = torch.from_numpy(np.nonzero(span_of == span)[0]).cuda()
-        if not idx.numel():
-            continue
-        b = idx.numel()
-        st, sc = starts[idx].contiguous(), scal[idx].contiguous()
-        un = torch.full((b, span), -2, dtype=torch.int8, device=flat.device)
-        w = min(span, unit.shape[1])
-        un[:, :w] = unit[idx, :w]
-        sizes = sc[:, 0].long() * span
-        mv_off = torch.cumsum(sizes, 0) - sizes
-        moves = torch.empty(max(int(sizes.sum()), 1), dtype=torch.uint8,
-                            device=flat.device)
-        best = torch.empty((b, 8), dtype=torch.int32, device=flat.device)
-        max_rep = sc[:, 0].amax().reshape(1)
-        out = torch.zeros((b, 500, 9), dtype=torch.int32, device=flat.device)
-        done = torch.empty(b, dtype=torch.int32, device=flat.device)
-        calls.append((
-            (span, flat.data_ptr(), st.data_ptr(), sc.data_ptr(),
-             un.data_ptr(), mv_off.data_ptr(), max_rep.data_ptr(),
-             moves.data_ptr(), best.data_ptr(), b, stream),
-            (span, flat.data_ptr(), st.data_ptr(), sc.data_ptr(),
-             mv_off.data_ptr(), moves.data_ptr(), best.data_ptr(), factor,
-             out.data_ptr(), done.data_ptr(), b, stream),
-            (st, sc, un, mv_off, moves, best, max_rep, out, done)))
-
-    def run():
-        for fill_args, tb_args, _ in calls:
-            err = lib.mtr_wrap_dp_consensus_v1_fill(*fill_args)
-            err = err or lib.mtr_wrap_dp_consensus_v1_traceback(*tb_args)
-            check(err == 0, f"consensus v1 launch failed: CUDA error {err}")
-
-    return run
-
-
 def replay_walks(walks, budget_s):
     """Phase 4c: every row-kernel launch of the device-whole bench run
-    replayed on its own inputs (stage A's outputs of a chunk), the first
-    design ("before", csrc/dbg_walk_v1.cu, on the chunk's speculative
-    jobs: every listed max node both ways) and the row kernel ("now", a
-    slot-counter reset included) in turns with CUDA events; launch
-    statistics; then, heaviest launches first (by "now") and within
-    budget_s of plain time, the kernel against walk_rows_plain on the
-    launch (zero tolerance) and the lookups and steps it counts there,
-    for the bound.  Returns one dict a launch."""
+    replayed on its own inputs (stage A's outputs of a chunk), timed with
+    CUDA events (a slot-counter reset included); launch statistics; then,
+    heaviest launches first and within budget_s of plain time, the kernel
+    against walk_rows_plain on the launch (zero tolerance) and the lookups
+    and steps it counts there, for the bound.  Returns one dict a
+    launch."""
     import torch
 
-    from mtr_tpu_torch.ops import _build
     from mtr_tpu_torch.ops import dbg_device as dw
     from mtr_tpu_torch.testutil import walk_cases as wc
 
-    base = _build.baseline_library()
     rows = []
     for n, args in enumerate(walks):
-        before, jobs = bare_walk(base.mtr_dbg_walk_v1, args)
-        now, outs = row_walk(args)
-        ms = in_turns({"before": before, "now": now}, 2)
+        run, outs = row_walk(args)
+        ms = kernel_ms(run, 2)
         sv, maxfreq = args[0], args[2]
         rows.append({"launch": n, "rows": int(sv.shape[0]),
-                     "gated": int((maxfreq > 5).sum()), "jobs": jobs,
+                     "gated": int((maxfreq > 5).sum()),
                      "v_pad": int(sv.shape[1]),
                      "row_entries": int(outs[4].item()),
                      "table_mb": sv.numel() * 8 / 1e6, "ms": ms})
-        del before, now, outs
+        del run, outs
     spent = 0.0
-    for row in sorted(rows, key=lambda r: -r["ms"]["now"]):
+    for row in sorted(rows, key=lambda r: -r["ms"]):
         if spent > budget_s:
             break
         args = walks[row["launch"]][:7]
@@ -1699,24 +1589,18 @@ def replay_walks(walks, budget_s):
 
 def replay_cons(cons):
     """Phase 4b: every consensus launch of the device-whole bench run
-    replayed on its own inputs, the first design ("before",
-    csrc/wrap_dp_consensus_v1.cu, its jobs split by span as its batcher
-    launched them) and the kernel ("now") in turns with CUDA events; then
-    the kernel against the plain version on the heaviest launch (zero
-    tolerance) and the plain version's time there.  Returns one dict a
-    launch."""
+    replayed on its own inputs, timed with CUDA events; then the kernel
+    against the plain version on the heaviest launch (zero tolerance) and
+    the plain version's time there.  Returns one dict a launch."""
     import torch
 
-    from mtr_tpu_torch.ops import _build
     from mtr_tpu_torch.ops import wrap_dp_consensus as cop
     from mtr_tpu_torch.ops.wrap_dp_resident import consensus_resident_plain
 
-    base = _build.baseline_library()
     rows = []
     for n, args in enumerate(cons):
         scal = args[2].cpu().numpy()
-        ms = in_turns({"before": bare_cons_v1(base, args),
-                       "now": cop.prepare(*args)[0]}, 3)
+        ms = kernel_ms(cop.prepare(*args)[0], 3)
         bms, by = cons_bound(scal)
         rows.append({"launch": n, "jobs": len(scal), "u_span": args[4],
                      "max_rep_len": int(scal[:, 0].max()),
@@ -1724,7 +1608,7 @@ def replay_cons(cons):
                      "cells": int((scal[:, 0].astype(np.int64)
                                    * scal[:, 1]).sum()),
                      "ms": ms, "bound_ms": bms, "bound_by": by})
-    row = max(rows, key=lambda r: r["ms"]["now"])
+    row = max(rows, key=lambda r: r["ms"])
     flat, starts, scal, unit, u_span, factor = cons[row["launch"]]
     launch, (fused, best, done, _, _) = cop.prepare(*cons[row["launch"]])
     launch()
@@ -1743,11 +1627,10 @@ def replay_cons(cons):
 
 
 def run_summary(rows):
-    """The run's sum for each design, and the three heaviest launches of
-    the kernel."""
-    sums = {name: sum(r["ms"][name] for r in rows)
-            for name in ("before", "now")}
-    return sums, sorted(rows, key=lambda r: -r["ms"]["now"])[:3]
+    """The kernel's sum over the run's launches, and its three heaviest
+    launches."""
+    return (sum(r["ms"] for r in rows),
+            sorted(rows, key=lambda r: -r["ms"])[:3])
 
 
 def prefilter_path(fasta, golden):
@@ -1805,37 +1688,12 @@ def counts_bound(scal):
     return (*bound_ms(cells * COUNTS_OPS_PER_CELL, n_bytes), cells)
 
 
-def block_counts(lib):
-    """The first design (csrc/wrap_dp_counts_block.cu) behind
-    wrap_dp_counts' signature: unit rows padded to its span 128/256/512."""
-    import ctypes
-
-    import torch
-
-    def run(flat, starts, scal, unit, u_span):
-        span = next(s for s in (128, 256, 512) if s >= u_span)
-        unit = torch.nn.functional.pad(unit, (0, span - u_span), value=-2)
-        out = torch.empty((scal.shape[0], 15), dtype=torch.int32,
-                          device=flat.device)
-        max_rep = scal[:, 0].amax().reshape(1)
-        err = lib.mtr_wrap_dp_counts_block(
-            span, flat.data_ptr(), starts.data_ptr(), scal.data_ptr(),
-            unit.contiguous().data_ptr(), max_rep.data_ptr(), out.data_ptr(),
-            scal.shape[0],
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        check(err == 0, f"the first-design counts kernel failed: {err}")
-        return out
-
-    return run
-
-
 def time_kernel():
-    """Phase 4: CUDA-event times of the counts kernel and of its first
-    design, in turns (old, new, new, old), at the bench's GCUPS shapes
-    (bench.py:395-397) and at unit 400; the plain version at the first."""
+    """Phase 4: CUDA-event times of the counts kernel at the bench's
+    GCUPS shapes (bench.py:395-397) and at unit 400; the plain version at
+    the first."""
     import torch
 
-    from mtr_tpu_torch.ops import _build
     from mtr_tpu_torch.ops.wrap_dp_counts import (
         u_span_for,
         wrap_dp_counts,
@@ -1844,7 +1702,6 @@ def time_kernel():
     from mtr_tpu_torch.ops.wrap_dp_resident import gather_segments
 
     rng = np.random.default_rng(395)
-    old = block_counts(_build.baseline_library())
     info(f"timing on: {card_line()}")
 
     def inputs(b, ul, rl, u_span):
@@ -1860,25 +1717,16 @@ def time_kernel():
         u_span = u_span_for(ul)
         batch = inputs(b, ul, rl, u_span)
         args = [torch.from_numpy(a).cuda() for a in batch]
-        got_new = wrap_dp_counts(*args, u_span)
-        got_old = old(*args, u_span)
-        torch.cuda.synchronize()
-        check(torch.equal(got_new[:, :11], got_old[:, :11]),
-              f"old and new counts kernels disagree at unit {ul}")
-        t_old = [event_ms(lambda: old(*args, u_span), n)]
-        t_new = [event_ms(lambda: wrap_dp_counts(*args, u_span), n)]
-        t_new.append(event_ms(lambda: wrap_dp_counts(*args, u_span), n))
-        t_old.append(event_ms(lambda: old(*args, u_span), n))
-        ms, ms_old = min(t_new), min(t_old)
+        t = [event_ms(lambda: wrap_dp_counts(*args, u_span), n)
+             for _ in range(2)]
+        ms = min(t)
         bms, by, cells = counts_bound(batch[2])
         info(f"counts kernel, unit {ul} x rep_len {rl} x {b} jobs (C "
-             f"{u_span // 32}): {ms:.3f} ms/launch ({t_new[0]:.3f}, "
-             f"{t_new[1]:.3f}), {cells / ms / 1e6:.2f} GCUPS; first design "
-             f"{ms_old:.3f} ms ({t_old[0]:.3f}, {t_old[1]:.3f}), "
-             f"{cells / ms_old / 1e6:.2f} GCUPS; bound {bms:.3f} ms "
+             f"{u_span // 32}): {ms:.3f} ms/launch ({t[0]:.3f}, "
+             f"{t[1]:.3f}), {cells / ms / 1e6:.2f} GCUPS; bound {bms:.3f} ms "
              f"({by}), share of bound {bms / ms:.3f}")
-        res[ul] = dict(ms=ms, ms_before=ms_old, bound_ms=bms, bound_by=by,
-                       args=args, u_span=u_span)
+        res[ul] = dict(ms=ms, bound_ms=bms, bound_by=by, args=args,
+                       u_span=u_span)
     r = res[100]
     flat, starts, scal, units = r["args"]
 
@@ -1893,59 +1741,6 @@ def time_kernel():
          f"{plain_ms:.1f} ms/call, kernel {r['ms']:.3f} ms "
          f"({plain_ms / r['ms']:.0f}x)")
     return res, plain_ms
-
-
-def hybrid_profile(fasta, golden):
-    """Phase 4d: the hybrid's bench run under torch.profiler, once with
-    the counts kernel and once with its first design swapped in: total
-    counts-kernel device ms, launches, jobs per launch, longest rep_len
-    per launch; both outputs equal the golden."""
-    import io
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from mtr_tpu_torch import pipeline as tp
-    from mtr_tpu_torch.config import MTRConfig
-    from mtr_tpu_torch.ops import _build
-
-    real = tp.wrap_dp_counts
-    out = {}
-    for name, op in (("kernel", real),
-                     ("first design",
-                      block_counts(_build.baseline_library()))):
-        shapes = []
-
-        def spy(flat, starts, scal, unit, u_span, _op=op):
-            shapes.append((scal.shape[0], int(scal[:, 0].amax()),
-                           u_span // 32))
-            return _op(flat, starts, scal, unit, u_span)
-
-        tp.wrap_dp_counts = spy
-        try:
-            cfg = MTRConfig(backend="hybrid")
-            text = io.StringIO()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                tp.run_file(fasta, cfg, text, batcher=tp.make_batcher(cfg))
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-        finally:
-            tp.wrap_dp_counts = real
-        same_as_golden(text.getvalue(), golden,
-                       f"port hybrid ({name}, profiled)")
-        dev_us = 0.0
-        for evt in prof.key_averages():
-            if "wrap_dp_counts" in evt.key:
-                dev_us += getattr(evt, "device_time_total",
-                                  getattr(evt, "cuda_time_total", 0.0))
-        out[name] = dev_us / 1e3
-        info(f"bench run, hybrid with the counts {name} (profiled): "
-             f"{dt:.3f} s, counts-kernel device time {dev_us / 1e3:.3f} ms "
-             f"over {len(shapes)} launches; (jobs, longest rep_len, largest "
-             f"C) a launch: {shapes}")
-    return out
 
 
 def di_bound(kind, n_outs, ws):
@@ -1987,49 +1782,14 @@ def bare_di_group(kind, codes, n_outs, ws, n_sym):
     return run, out
 
 
-def bare_di_v1(kind, codes, n_outs, ws, n_sym):
-    """The first design (csrc/directional_index_v1.cu) on the same passes,
-    a launch a pass, as the device backend first ran them.  Returns (run,
-    each pass's output)."""
-    import ctypes
-
-    import torch
-
-    from mtr_tpu_torch.ops import _build
-
-    base = _build.baseline_library()
-    fn = (base.mtr_di_sliding_l1_v1 if kind == "l1"
-          else base.mtr_di_pearson_moments_v1)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    outs, calls = [], []
-    for n, w in zip(n_outs, ws):
-        o = torch.empty((n,) if kind == "l1" else (5, n), dtype=torch.int32,
-                        device=codes.device)
-        outs.append(o)
-        calls.append((n, w, [o.data_ptr()] if kind == "l1"
-                      else [r.data_ptr() for r in o]))
-
-    def run(_keep=outs):
-        for n, w, ptrs in calls:
-            err = fn(codes.data_ptr(), codes.numel(), n, w, n_sym, *ptrs,
-                     stream)
-            check(err == 0, f"first-design DI kernel {kind} failed: {err}")
-
-    return run, outs
-
-
 def replay_di(launches, kind):
     """Phase 4e: every recorded DI group launch of a device run, the
-    kernel against its plain version (zero tolerance) and, in turns with
-    CUDA events, the kernel ("now") against the first design's launches of
-    the same passes ("before").  Returns one dict a launch."""
+    kernel against its plain version (zero tolerance) and timed with CUDA
+    events.  Returns one dict a launch."""
     rows = []
     for n, (codes, n_outs, ws, n_sym) in enumerate(launches):
         err = di_diff(codes, n_outs, ws, n_sym, kind)
-        ms = in_turns({"before": bare_di_v1(kind, codes, n_outs, ws,
-                                            n_sym)[0],
-                       "now": bare_di_group(kind, codes, n_outs, ws,
-                                            n_sym)[0]}, 3)
+        ms = kernel_ms(bare_di_group(kind, codes, n_outs, ws, n_sym)[0], 3)
         bms, by = di_bound(kind, n_outs, ws)
         rows.append({"launch": n, "passes": len(ws), "positions": sum(n_outs),
                      "w_max": max(ws), "n_sym": n_sym, "max_abs_err": err,
@@ -2101,8 +1861,8 @@ def di_host_split(fasta, in_run):
 
 
 def time_di(rows, launches, kind):
-    """Phase 4e at the heaviest replayed launch: the kernel and the first
-    design in turns (CUDA events), the group with its copies (numpy codes
+    """Phase 4e at the heaviest replayed launch: the kernel (CUDA events),
+    the group with its copies (numpy codes
     through pinned memory to the card and the outputs back; host clock), the plain version on the card, the native host
     passes (Manhattan only: the native engine's Pearson pass runs inside
     its whole-read fill_di) and the bound; the run's sums."""
@@ -2114,11 +1874,9 @@ def time_di(rows, launches, kind):
     name = "Manhattan sliding L1" if kind == "l1" else "Pearson moments"
     sums, _ = report_replay(f"DI {name} kernel", rows,
                             f"di_{kind}_launches.json")
-    heavy = max(rows, key=lambda r: r["ms"]["now"])
+    heavy = max(rows, key=lambda r: r["ms"])
     codes, n_outs, ws, n_sym = launches[heavy["launch"]]
-    ms = in_turns({"before": bare_di_v1(kind, codes, n_outs, ws, n_sym)[0],
-                   "now": bare_di_group(kind, codes, n_outs, ws, n_sym)[0]},
-                  20)
+    ms = kernel_ms(bare_di_group(kind, codes, n_outs, ws, n_sym)[0], 20)
     vals = codes.cpu().numpy()
     staging = di._Staging()
 
@@ -2141,11 +1899,9 @@ def time_di(rows, launches, kind):
         host_ms = (time.perf_counter() - t0) * 1e3
     bms, by = di_bound(kind, n_outs, ws)
     k = n_sym.bit_length() // 2
-    res = {"ms": ms["now"], "ms_before": ms["before"], "copies_ms": copies_ms,
-           "plain_ms": plain_ms, "host_ms": host_ms, "bound_ms": bms,
-           "bound_by": by, "run_ms": sums["now"],
-           "run_ms_before": sums["before"],
-           "run_bound_ms": sum(r["bound_ms"] for r in rows),
+    res = {"ms": ms, "copies_ms": copies_ms, "plain_ms": plain_ms,
+           "host_ms": host_ms, "bound_ms": bms, "bound_by": by,
+           "run_ms": sums, "run_bound_ms": sum(r["bound_ms"] for r in rows),
            "launches": len(rows), "passes": sum(r["passes"] for r in rows),
            "max_abs_err": max(r["max_abs_err"] for r in rows),
            "shape": f"n_sym {n_sym} (k {k}), {len(ws)} passes, w "
@@ -2157,32 +1913,30 @@ def time_di(rows, launches, kind):
          f"{res['run_bound_ms']:.4f} ms, share "
          f"{res['run_bound_ms'] / res['run_ms']:.4f}; "
          f"max abs err against the plain version {res['max_abs_err']}")
-    info(f"  heaviest launch ({res['shape']}): kernel {ms['now']:.4f} ms, "
-         f"first design {ms['before']:.4f} ms; with its copies "
-         f"{copies_ms:.3f} ms (host clock), plain version {plain_ms:.3f} ms, "
-         f"{host}; bound {bms:.5f} ms ({by}), share {bms / ms['now']:.4f}")
+    info(f"  heaviest launch ({res['shape']}): kernel {ms:.4f} ms; with its "
+         f"copies {copies_ms:.3f} ms (host clock), plain version "
+         f"{plain_ms:.3f} ms, {host}; bound {bms:.5f} ms ({by}), share "
+         f"{bms / ms:.4f}")
     return res
 
 
 def report_replay(name, rows, save):
     """Print a replayed kernel's run sums and heaviest launches; write
     every launch's row to build/chip_smoke/<save>."""
-    sums, heavy = run_summary(rows)
+    total, heavy = run_summary(rows)
     out_dir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, save), "w") as f:
         json.dump(rows, f, indent=1)
     info(f"{name}, the device-whole bench run's {len(rows)} launches "
-         f"replayed (first design / kernel, in turns; {card_line()}): run "
-         f"sum {sums['before']:.3f} / {sums['now']:.3f} ms "
-         f"({sums['before'] / sums['now']:.2f}x); rows in build/chip_smoke/"
-         f"{save}")
+         f"replayed ({card_line()}): run sum {total:.3f} ms; rows in "
+         f"build/chip_smoke/{save}")
     for r in heavy:
         info(f"  heavy launch {r['launch']}: "
              + ", ".join(f"{k} {v}" for k, v in r.items()
                          if k not in ("launch", "ms"))
-             + f"; ms {r['ms']['before']:.3f} / {r['ms']['now']:.3f}")
-    return sums, heavy
+             + f"; ms {r['ms']:.3f}")
+    return total, heavy
 
 
 def main() -> int:
@@ -2221,7 +1975,6 @@ def main() -> int:
             accuracy_path(tmp)
             info(f"phases 5a-5e: {time.perf_counter() - t_new:.1f} s")
             counts, plain_ms = time_kernel()
-            profiled = hybrid_profile(fasta, golden)
         cons_rows = replay_cons(spies.cons)
         walk_rows = replay_walks(spies.walks, WALK_PLAIN_BUDGET_S)
         l1_launches = spies.di_l1
@@ -2274,12 +2027,9 @@ def main() -> int:
         "bound_ms": c200["bound_ms"],
         "bound_by": c200["bound_by"],
         "library_ms": None,
-        "ms_before": c200["ms_before"],
         "shape": "unit 200 x rep_len 32768 x 1024 jobs",
         "ms_at_unit_100": counts[100]["ms"],
         "ms_at_unit_400": counts[400]["ms"],
-        "hybrid_run_kernel_ms": profiled["kernel"],
-        "hybrid_run_kernel_ms_before": profiled["first design"],
     }, {
         "name": "wrap_dp_consensus",
         "route": "cuda",
@@ -2288,14 +2038,12 @@ def main() -> int:
         "launches": launches["consensus"],
         "mesh_launches": mesh_launches["consensus"],
         "max_abs_err": max(cons_worst, cons_heavy["max_abs_err"]),
-        "ms": cons_heavy["ms"]["now"],
+        "ms": cons_heavy["ms"],
         "plain_ms": cons_heavy["plain_ms"],
         "bound_ms": cons_heavy["bound_ms"],
         "bound_by": cons_heavy["bound_by"],
         "library_ms": None,
-        "ms_before": cons_heavy["ms"]["before"],
-        "run_ms": cons_sums["now"],
-        "run_ms_before": cons_sums["before"],
+        "run_ms": cons_sums,
         "run_bound_ms": sum(r["bound_ms"] for r in cons_rows),
         "heaviest_launch": heaviest(cons_heavy, (
             "launch", "jobs", "u_span", "max_rep_len", "max_unit",
@@ -2308,18 +2056,16 @@ def main() -> int:
         "launches": launches["dbg_walk"],
         "max_abs_err": None,
         "mismatches": walk_bad + sum(r["mismatches"] for r in counted),
-        "ms": walk_heavy["ms"]["now"],
+        "ms": walk_heavy["ms"],
         "plain_ms": walk_heavy["plain_ms"],
         "bound_ms": walk_heavy["bound_ms"],
         "bound_by": walk_heavy["bound_by"],
         "library_ms": None,
-        "ms_before": walk_heavy["ms"]["before"],
-        "run_ms": walk_sums["now"],
-        "run_ms_before": walk_sums["before"],
+        "run_ms": walk_sums,
         "run_bound_ms": walk_bound_run,
         "run_bound_launches": len(counted),
         "heaviest_launch": heaviest(walk_heavy, (
-            "launch", "rows", "gated", "jobs", "v_pad", "row_entries",
+            "launch", "rows", "gated", "v_pad", "row_entries",
             "plain_steps", "lookups")),
     }] + [{
         "name": name,
@@ -2333,9 +2079,7 @@ def main() -> int:
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": None,
-        "ms_before": r["ms_before"],
         "run_ms": r["run_ms"],
-        "run_ms_before": r["run_ms_before"],
         "run_bound_ms": r["run_bound_ms"],
         "passes": passes,
         "launches_replayed": r["launches"],

@@ -3,7 +3,6 @@
 
     python3 kernel_ab.py consensus-split
     python3 kernel_ab.py counts OTHER_wrap_dp_counts.cu
-    python3 kernel_ab.py di-split
 
 consensus-split: where the consensus kernel's fill spends a row.  It
 builds variants of mtr_tpu_torch/csrc/wrap_dp_consensus.cu with small
@@ -20,17 +19,7 @@ parent commit's mtr_tpu_torch/csrc/wrap_dp_counts.cu, unpacked with git
 archive), built into a library of its own, timed in turns (other, kernel,
 kernel, other) at chip_smoke.py's phase-4 shapes, outputs compared.
 
-di-split: where a step of the first DI design's slide goes
-(csrc/directional_index_v1.cu).  It builds csrc/directional_index_split.cu,
-the same kernels with clock64() stamps around each part of lane 0's step
-(the code loads, the bin loads, the update, the stores to the bins, the
-store of the output), and runs it on the bench set's heaviest Manhattan
-and Pearson passes (k 5, w 10,240 of its longest read, as chip_smoke's 4e
-records them): cycles a step by part, summed over every tile, beside the
-first design's CUDA-event time on the same pass and the kernel's time on
-the read's k-5 group of passes.
-
-All three print the card's name and power limit first.  Builds go to
+Both print the card's name and power limit first.  Builds go to
 build/kernel_ab/.
 """
 
@@ -184,128 +173,6 @@ def counts(other: str) -> None:
         cs.check(same, "the two counts kernels disagree")
 
 
-def bench_k5_passes():
-    """The codes of the bench set's longest read at k 5 (as
-    fill_directional_index_with_end fills the arena) and its (w, n_out)
-    passes by kind: Manhattan n_i + w positions, Pearson n_i."""
-    import tempfile
-
-    import chip_smoke as cs
-    from mtr_tpu_torch.config import MTRConfig
-    from mtr_tpu_torch.io.fasta import iter_fasta
-    from mtr_tpu_torch.oracle.arena import Arena
-    from mtr_tpu_torch.oracle.directional_index import init_input_w_rand
-    from mtr_tpu_torch.testutil.rand_seq import write_fasta
-
-    cfg = MTRConfig()
-    os.makedirs(OUT, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
-        fasta = os.path.join(tmp, "bench.fasta")
-        write_fasta(fasta, fasta[:-6] + ".units", *cs.BENCH_ARGS, seed=20200)
-        read = max(iter_fasta(fasta, cfg.max_input_length),
-                   key=lambda r: r.length)
-    L = read.length
-    rsl = 100 if L < 1000 else L // 10
-    arena = Arena(cfg.max_input_length)
-    arena.load_read(read.codes)
-    init_input_w_rand(arena, 5, L, rsl)
-    passes = {"l1": [], "pcc": []}
-    w = 5
-    while w <= 10240 and w < L // 2:
-        n_i = L + 2 * rsl - w - rsl - 5 + 1
-        passes["l1"].append((w, n_i + w))
-        passes["pcc"].append((w, n_i))
-        w *= 2
-    return arena.input_w_rand.copy(), passes
-
-
-def di_split() -> None:
-    import numpy as np
-    import torch
-
-    import chip_smoke as cs
-    from mtr_tpu_torch.ops import _build
-
-    with open(os.path.join(CSRC, "directional_index_split.cu")) as f:
-        lib = build("di_split", f.read())
-    lib.mtr_di_split.argtypes = [ctypes.c_int, ctypes.c_void_p] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-    lib.mtr_di_split.restype = ctypes.c_int
-    lib.mtr_di_split_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mtr_di_split_tiles.restype = ctypes.c_int
-    base = _build.baseline_library()
-    vals, passes = bench_k5_passes()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    parts = ("code loads", "bin loads", "update", "bin stores",
-             "output store")
-    for kind, n_win, rows in (("l1", 2, 1), ("pcc", 3, 5)):
-        w, n_out = passes[kind][-1]
-        codes = torch.from_numpy(vals[: n_out + n_win * w - 1]).cuda()
-        out = torch.empty((rows, n_out), dtype=torch.int32, device="cuda")
-        ref = torch.empty_like(out)
-        tiles = lib.mtr_di_split_tiles(n_out, n_win * w)
-        prof = torch.zeros((tiles, 8), dtype=torch.int64, device="cuda")
-        v1 = (base.mtr_di_sliding_l1_v1 if kind == "l1"
-              else base.mtr_di_pearson_moments_v1)
-
-        def run_v1():
-            err = v1(codes.data_ptr(), codes.numel(), n_out, w, 1024,
-                     *(r.data_ptr() for r in ref), stream)
-            cs.check(err == 0, f"v1 DI kernel failed: {err}")
-
-        def run_split():
-            err = lib.mtr_di_split(int(kind == "pcc"), codes.data_ptr(),
-                                   codes.numel(), n_out, w, 1024,
-                                   out.data_ptr(), prof.data_ptr(), stream)
-            cs.check(err == 0, f"split DI kernel failed: {err}")
-
-        ms = cs.in_turns({"first design": run_v1, "probe": run_split}, 5)
-        run_split()
-        torch.cuda.synchronize()
-        cs.check(torch.equal(out, ref), "the probe's outputs differ from the "
-                 "first design's")
-        p = prof.cpu().numpy()
-        steps = int(p[:, 7].sum())
-        per = p[:, :5].sum(0) / steps
-        cs.info(f"DI {kind} slide split, k 5, w {w}, {n_out} positions, "
-                f"{tiles} tiles ({steps} steps): cycles a step "
-                + ", ".join(f"{n} {c:.1f}" for n, c in zip(parts, per))
-                + f"; sum {per.sum():.1f}; heaviest tile "
-                f"{int(p[:, :5].sum(1).max())} cycles; first design "
-                f"{ms['first design']:.4f} ms, probe {ms['probe']:.4f} ms")
-    di_group_ab(vals, passes)
-
-
-def di_group_ab(vals, passes) -> None:
-    """The kernel on the read's k-5 group of passes (one launch) against
-    the first design's launches of the same passes, in turns, outputs
-    compared."""
-    import torch
-
-    import chip_smoke as cs
-    from mtr_tpu_torch.ops import directional_index as di
-
-    for kind, n_win in (("l1", 2), ("pcc", 3)):
-        ws = [w for w, _ in passes[kind]]
-        n_outs = [n for _, n in passes[kind]]
-        codes = torch.from_numpy(vals[: max(
-            n + n_win * w - 1 for w, n in passes[kind])]).cuda()
-        new, _ = cs.bare_di_group(kind, codes, n_outs, ws, 1024)
-        old, old_out = cs.bare_di_v1(kind, codes, n_outs, ws, 1024)
-        ms = cs.in_turns({"first design": old, "kernel": new}, 5)
-        got = cs.di_group_out(kind, codes, n_outs, ws, 1024)
-        old()
-        torch.cuda.synchronize()
-        same = all(torch.equal(g, o) for g, o in zip(got, old_out))
-        cs.info(f"DI {kind} k-5 group, {len(ws)} passes, w {ws[0]}.."
-                f"{ws[-1]}, {sum(n_outs)} positions: kernel "
-                f"{ms['kernel']:.4f} ms in one launch, first design "
-                f"{ms['first design']:.4f} ms in "
-                f"{len(ws)} ({ms['first design'] / ms['kernel']:.2f}x); "
-                f"outputs equal: {same}")
-        cs.check(same, "the DI kernel and its first design disagree")
-
-
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -318,8 +185,6 @@ def main() -> int:
     cs.info(cs.card_line())
     if sys.argv[1:2] == ["consensus-split"]:
         consensus_split()
-    elif sys.argv[1:2] == ["di-split"]:
-        di_split()
     elif sys.argv[1:2] == ["counts"] and len(sys.argv) == 3:
         counts(sys.argv[2])
     else:

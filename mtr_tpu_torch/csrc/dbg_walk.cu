@@ -7,8 +7,8 @@
 // winner selection.  The plain PyTorch statement of the same function is
 // mtr_tpu_torch/ops/dbg_device.py::walk_rows_plain (stage_b_plain's walks
 // in rank groups); the first design (one warp a speculative job, a binary
-// search of up to 17 dependent global loads a lookup) is
-// csrc/dbg_walk_v1.cu, kept as a yardstick.
+// search of up to 17 dependent global loads a lookup) was slower on every
+// launch timed, and is no longer kept.
 //
 // What bounds it: latency.  A walk is a chain of steps, a step a chain of
 // lookahead rounds (m = 1 .. max_la, max_la = k after the first 10 steps),

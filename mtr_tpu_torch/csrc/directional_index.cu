@@ -27,9 +27,8 @@
 // instructions a position, bind it.  The TPU program avoids the chain with
 // per-symbol prefix sums, ~1 GB of writes a pass here.
 //
-// The first design (csrc/directional_index_v1.cu) slid lane 0 of a
-// warp through a tile while 31 lanes idled, a warp or two an SM.  Its step
-// costs ~345 cycles on an H100 (kernel_ab.py di-split: the code loads ~100,
+// The first design, no longer kept, slid lane 0 of a warp through a tile
+// while 31 lanes idled, a warp or two an SM.  Its step cost ~345 cycles on an H100 (clock64() stamps: the code loads ~100,
 // which did not run ahead of the chain as that source said, the bin loads
 // ~108, the update ~95, the stores ~42), so a pass cost one tile's serial
 // chain.  With the card full, instruction slots bind as well: a warp that runs

@@ -12,8 +12,8 @@
 // mtr_tpu_torch/ops/wrap_dp_consensus.py (wrap_dp_fill_plain,
 // traceback_consensus_plain; pack_moves states the move layout below).
 // The first design (a block per job, a thread per column, then a thread
-// per job for the traceback) is csrc/wrap_dp_consensus_v1.cu, kept as a
-// yardstick.
+// per job for the traceback) was slower than this one on every launch
+// timed, and is no longer kept.
 //
 // What bounds it: latency.  A polish launch holds a handful of jobs of a
 // few thousand rows each (the bench set: ~6 jobs, rep_len up to 4,167), so

@@ -4,11 +4,7 @@ library, bound with ctypes).
 The library is built at first use from the sources under
 mtr_tpu_torch/csrc/ into build/mtr_tpu_torch/<hash>/ at the repository
 root, keyed by a hash of the sources, headers and flags, so an edited
-source never loads a stale binary.  The kernels' first designs
-(csrc/wrap_dp_counts_block.cu, csrc/wrap_dp_consensus_v1.cu,
-csrc/dbg_walk_v1.cu, csrc/directional_index_v1.cu) build only on request, into a library of their own
-(baseline_library): chip_smoke.py times the kernels against them, and no
-path of the port launches them.  A failed build raises with nvcc's
+source never loads a stale binary.  A failed build raises with nvcc's
 stderr: there is no fallback to the plain version.
 """
 
@@ -27,18 +23,13 @@ _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(_CSRC, name) for name in (
     "wrap_dp_counts.cu", "wrap_dp_consensus.cu", "dbg_walk.cu",
     "directional_index.cu"))
-HEADERS = tuple(os.path.join(_CSRC, name) for name in (
-    "wrap_dp_rows.cuh", "wrap_dp_warp.cuh"))
-BASELINE = tuple(os.path.join(_CSRC, name) for name in (
-    "wrap_dp_counts_block.cu", "wrap_dp_consensus_v1.cu", "dbg_walk_v1.cu",
-    "directional_index_v1.cu"))
+HEADERS = (os.path.join(_CSRC, "wrap_dp_warp.cuh"),)
 BUILD_DIR = os.path.join(_ROOT, "build", "mtr_tpu_torch")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
-_BASELINE_LIB = None
 
 
 def _nvcc() -> str:
@@ -57,7 +48,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES + HEADERS + BASELINE:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -123,24 +114,3 @@ def library() -> ctypes.CDLL:
             })
         return _LIB
 
-
-def baseline_library() -> ctypes.CDLL:
-    """The kernels' first designs in a library of their own, yardsticks
-    for timing launched by no path of the port:
-    mtr_wrap_dp_counts_block(u_span 128/256/512, ...) (the counts
-    kernel), mtr_wrap_dp_consensus_v1_fill / _traceback (u_span
-    128/256/512), mtr_dbg_walk_v1 and mtr_di_sliding_l1_v1 /
-    mtr_di_pearson_moments_v1 (one launch a DI pass)."""
-    global _BASELINE_LIB
-    with _LOCK:
-        if _BASELINE_LIB is None:
-            _BASELINE_LIB = _bind(
-                ctypes.CDLL(_build("mtr_baseline", BASELINE)), {
-                    "mtr_wrap_dp_counts_block": "ippppppip",
-                    "mtr_wrap_dp_consensus_v1_fill": "ippppppppip",
-                    "mtr_wrap_dp_consensus_v1_traceback": "ippppppippip",
-                    "mtr_dbg_walk_v1": "ppipppppipppppp",
-                    "mtr_di_sliding_l1_v1": "piiiipp",
-                    "mtr_di_pearson_moments_v1": "piiiipppppp",
-                })
-        return _BASELINE_LIB

@@ -19,6 +19,7 @@ import dataclasses
 import os
 import threading
 from collections import defaultdict
+from operator import attrgetter
 
 import numpy as np
 import torch
@@ -91,37 +92,6 @@ MOVES_BYTES_CAP = 1 << 30  # move scratch of one consensus launch
 TB_FACTOR = 6  # traceback steps a rep row, for every scheme but (1, *, >=1)
 
 
-_ENCODE_CACHE: dict = {}
-
-
-def _encode_unit(s: str) -> np.ndarray:
-    """encode_bases with memoization: the same few unit strings appear in
-    thousands of DP jobs per batch.  Returned arrays are read-only by
-    convention (DP job padding copies out of them)."""
-    a = _ENCODE_CACHE.get(s)
-    if a is None:
-        if len(_ENCODE_CACHE) > 65536:
-            _ENCODE_CACHE.clear()
-        a = encode_bases(s)
-        _ENCODE_CACHE[s] = a
-    return a
-
-
-@dataclasses.dataclass
-class DPJob:
-    """One DP job as an object: the polish phase's jobs and the tests'.  A
-    batcher's run() turns a list of them into a JobTable; its result is
-    the counts row (m, x, ins, del, scanned, i_final, max_i) or, in
-    consensus mode, the (500, 5) consensus and (500, 4) missing blocks."""
-    org: np.ndarray  # effective per-read arena view (codes + stale tail)
-    qs: int
-    qe: int
-    unit: np.ndarray  # int32 unit codes
-    scheme: tuple
-    mode: str = "counts"  # 'counts' | 'consensus'
-    result: object = None
-
-
 MODES = ("counts", "consensus")  # a JobTable's mode column indexes this
 
 
@@ -186,34 +156,30 @@ def first_rows(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return first[by_first], inv
 
 
-def _jobs_table(jobs: list[DPJob], index: dict,
-                dedup: bool) -> tuple[JobTable, np.ndarray]:
-    """A job list as a JobTable over the batch's reads (index: id(org) ->
-    read index) and, per job, its row.  Jobs equal in
-    (read, range, unit, scheme, mode) share a row unless dedup is False:
-    many k values discover the same unit for the same range, and the DP
-    result depends only on that key."""
-    n = len(jobs)
+def job_table(read, qs, qe, units: list[str], schemes,
+              mode: str) -> tuple[JobTable, np.ndarray]:
+    """The DP jobs of rows given as columns: a row's read (an index into
+    the batch's begin_batch list), its range qs..qe and its unit string.
+    Units are interned by string, and rows equal in (read, qs, qe, unit)
+    share their jobs, in the order the rows first appear: many k values
+    discover the same unit for the same range, and a DP result depends
+    only on that key.  A distinct row has one job for each of `schemes`,
+    in that order, all in `mode`.  Returns the table and, per row, its
+    distinct row d: its jobs are rows d * len(schemes) + s of the
+    table."""
     ids: dict = {}
-    codes: list = []
-    cols = np.empty((n, 8), np.int64)  # read, qs, qe, unit, scheme, mode
-    for i, job in enumerate(jobs):
-        u = ids.setdefault(job.unit.tobytes(), len(ids))
-        if u == len(codes):
-            codes.append(job.unit)
-        cols[i] = (index[id(job.org)], job.qs, job.qe, u, *job.scheme,
-                   MODES.index(job.mode))
-    if dedup:
-        first, inv = first_rows(cols)
-        cols = cols[first]
-    else:
-        inv = np.arange(n)
-    units, ulens = unit_table(
-        np.concatenate(codes),
-        np.fromiter(map(len, codes), np.int64, len(codes)))
-    return JobTable(cols[:, 0], cols[:, 1], cols[:, 2], cols[:, 3],
-                    cols[:, 4:7].astype(np.int32),
-                    cols[:, 7].astype(np.int32), units, ulens), inv
+    keys = np.empty((len(units), 4), np.int64)
+    keys[:, 0], keys[:, 1], keys[:, 2] = read, qs, qe
+    keys[:, 3] = [ids.setdefault(u, len(ids)) for u in units]
+    first, inv = first_rows(keys)
+    per = len(schemes)
+    k = np.repeat(keys[first], per, axis=0)
+    codes, ulens = unit_table(encode_bases("".join(ids)),
+                              np.fromiter(map(len, ids), np.int64, len(ids)))
+    return JobTable(k[:, 0], k[:, 1], k[:, 2], k[:, 3],
+                    np.tile(np.array(schemes, np.int32), (len(first), 1)),
+                    np.full(len(k), MODES.index(mode), np.int32),
+                    codes, ulens), inv
 
 
 def _merge_legs(t: JobTable, legs) -> tuple[np.ndarray, tuple | None]:
@@ -237,34 +203,17 @@ def _merge_legs(t: JobTable, legs) -> tuple[np.ndarray, tuple | None]:
     return counts, cons
 
 
-class _JobListBatcher:
-    """A batcher's job-list entry point, run(jobs), on its table entry
-    point, run_table(table) -> (counts, cons): counts (n, 7) int64, one
-    row a job (m, x, ins, del, scanned, i_final, max_i; zeros for a
-    consensus job), cons None or the consensus and missing blocks of the
-    consensus jobs in table order ((c, 500, 5), (c, 500, 4)).  A job's
-    read is one of the batch's (begin_batch); a job list run with no batch
-    begun makes its own reads the batch."""
-
-    _index: dict = {}  # id(org) -> read index, set by begin_batch
-
-    def run(self, jobs: list[DPJob], deduped: bool = False) -> None:
-        if not jobs:
-            return
-        if not self._index:
-            self.begin_batch(list({id(j.org): j.org for j in jobs}.values()))
-        table, inv = _jobs_table(jobs, self._index, not deduped)
-        counts, cons = self.run_table(table)
-        rank = np.cumsum(table.mode == 1) - 1
-        rows = counts.tolist()
-        for job, r in zip(jobs, inv.tolist()):
-            if job.mode == "counts":
-                job.result = tuple(rows[r])
-            else:
-                job.result = (cons[0][rank[r]], cons[1][rank[r]])
+# The DP batchers (HostDPBatcher, TorchDPBatcher and its mesh form
+# ShardedTorchDPBatcher, TorchHybridDPBatcher) take jobs one way:
+# begin_batch(orgs) takes the batch's reads, then each run_table(t) runs a
+# JobTable whose read column indexes orgs and returns (counts, cons):
+# counts (n, 7) int64, one row a job (m, x, ins, del, scanned, i_final,
+# max_i; read for counts jobs only), and cons None or the consensus and
+# missing blocks of the consensus jobs in table order ((c, 500, 5),
+# (c, 500, 4)).
 
 
-class HostDPBatcher(_JobListBatcher):
+class HostDPBatcher:
     """Native C++ wrap-DP engine (threaded scalar fills) with the same job
     interface as TorchDPBatcher: the host backend, the hybrid's host leg,
     and a cross-check.  The JAX package's degrade to the Python oracle
@@ -273,9 +222,7 @@ class HostDPBatcher(_JobListBatcher):
 
     def begin_batch(self, orgs: list[np.ndarray]) -> None:
         # the engine reads segments in place, through each read's address
-        self._orgs = list(orgs)  # the reads as given, kept alive
         self._reads = [np.ascontiguousarray(o, np.int32) for o in orgs]
-        self._index = {id(o): i for i, o in enumerate(orgs)}
         self._ptrs = np.fromiter((r.ctypes.data for r in self._reads),
                                  np.uint64, len(self._reads))
 
@@ -354,29 +301,18 @@ class SchemeJobs:
 
 def scheme_jobs(queries: list) -> SchemeJobs:
     """The job table of the queries' candidates.  Only the unit of each
-    candidate is read, and interned; everything else is per query."""
-    ids: dict = {}
-    keys: list = []  # a candidate's (read, qs, qe, unit id)
-    cand_query: list = []
-    for qi, q in enumerate(queries):
-        r, qs, qe = q.read_idx, q.qs, q.qe
-        for cand in q.candidates:
-            keys.append((r, qs, qe, ids.setdefault(cand.string, len(ids))))
-            cand_query.append(qi)
-    keys = np.array(keys, np.int64).reshape(-1, 4)
-    first, pair = first_rows(keys)
-    k = np.repeat(keys[first], 2, axis=0)
-    n = len(k)
-    units, ulens = unit_table(encode_bases("".join(ids)),
-                              np.fromiter(map(len, ids), np.int64, len(ids)))
-    TIMERS.count("scheme_candidates", len(keys))
-    TIMERS.count("scheme_pairs", len(first))
-    cand_query = np.array(cand_query, np.int64)
+    candidate is read; everything else is per query."""
+    strings = [cand.string for q in queries for cand in q.candidates]
+    cand_query = np.repeat(np.arange(len(queries)), np.fromiter(
+        (len(q.candidates) for q in queries), np.int64, len(queries)))
+    read, qs, qe = (np.fromiter(map(attrgetter(name), queries), np.int64,
+                                len(queries))[cand_query]
+                    for name in ("read_idx", "qs", "qe"))
+    jobs, pair = job_table(read, qs, qe, strings, SCHEMES, "counts")
+    TIMERS.count("scheme_candidates", len(strings))
+    TIMERS.count("scheme_pairs", len(jobs) // 2)
     cand_pos = np.arange(len(cand_query)) - np.searchsorted(cand_query,
                                                             cand_query)
-    jobs = JobTable(k[:, 0], k[:, 1], k[:, 2], k[:, 3],
-                    np.tile(np.array(SCHEMES, np.int32), (n // 2, 1)),
-                    np.zeros(n, np.int32), units, ulens)
     return SchemeJobs(jobs, cand_query, cand_pos, pair)
 
 
@@ -450,39 +386,41 @@ def _polish_phase(batcher, states, polish_set, cfg) -> None:
             polish_repeat(org, input_len, rr)
             items.append((q, rr, rr.match_ratio()))
 
+    read = np.array([q.read_idx for q, _, _ in items], np.int64)
+
+    def jobs(tmps, rows, scheme, mode):
+        """The round's jobs of tmps[rows], one a distinct (read, range,
+        unit), and each row's job."""
+        return job_table(read[rows], [tmps[i].rep_start for i in rows],
+                         [tmps[i].rep_end for i in rows],
+                         [tmps[i].string for i in rows], (scheme,), mode)
+
     for scheme in ((5, 1, 1), (1, 1, 3)):
         with TIMERS.span("mtr.polish.consensus"):
             # consensus DP on current units
-            consjobs = []
             tmps = []
-            for q, rr, base_ratio in items:
-                org = states[q.read_idx].org
+            for _, rr, _ in items:
                 tmp = rr.copy()
                 tmp.match_gain, tmp.mismatch_penalty, tmp.indel_penalty = scheme
-                consjobs.append(
-                    DPJob(org, tmp.rep_start, tmp.rep_end,
-                          _encode_unit(tmp.string), scheme, mode="consensus")
-                )
                 tmps.append(tmp)
-            batcher.run(consjobs)
+            table, inv = jobs(tmps, np.arange(len(tmps)), scheme, "consensus")
+            _, (cons, miss) = batcher.run_table(table)
             # host rebuild (batched argmax), then re-score the revised units
-            rebuild_units_batch(tmps, [job.result for job in consjobs])
+            rebuild_units_batch(tmps, [(cons[r], miss[r])
+                                       for r in inv.tolist()])
         with TIMERS.span("mtr.polish.score"):
-            scorejobs = []
-            score_meta = []
-            for (q, rr, base_ratio), tmp, job in zip(items, tmps, consjobs):
-                if tmp.rep_period < MAX_PERIOD:
-                    org = states[q.read_idx].org
-                    sj = DPJob(org, tmp.rep_start, tmp.rep_end,
-                               _encode_unit(tmp.string), scheme)
-                    scorejobs.append(sj)
-                    score_meta.append(((q, rr, base_ratio), tmp, sj))
-            batcher.run(scorejobs)
-            for (q, rr, base_ratio), tmp, sj in score_meta:
-                apply_counts(tmp, sj.qs, len(sj.unit), sj.scheme, sj.result)
+            rows = np.array([i for i, tmp in enumerate(tmps)
+                             if tmp.rep_period < MAX_PERIOD], np.int64)
+            if not len(rows):
+                continue
+            table, inv = jobs(tmps, rows, scheme, "counts")
+            counts, _ = batcher.run_table(table)
+            for i, row in zip(rows.tolist(), counts[inv].tolist()):
+                _, rr, base_ratio = items[i]
+                tmp = tmps[i]
+                apply_counts(tmp, tmp.rep_start, len(tmp.string), scheme, row)
                 if ratio_less(base_ratio, tmp.match_ratio()):
                     _assign(rr, tmp)
-
 
 
 def _live_positions(st) -> np.ndarray:
@@ -705,7 +643,7 @@ def _cap_parts(move_bytes: list[int]) -> list[int]:
     return cap_parts(move_bytes, MOVES_BYTES_CAP)
 
 
-class TorchDPBatcher(_JobListBatcher):
+class TorchDPBatcher:
     """DP jobs on one torch device (counterpart of
     mtr_tpu.pipeline.WrapDPBatcher).  The batch's reads are uploaded once
     (begin_batch); each run sorts its jobs longest first, launches the
@@ -743,7 +681,6 @@ class TorchDPBatcher(_JobListBatcher):
             view[p : p + len(o)] = o
             base[i] = p
             p += len(o)
-        self._index = {id(o): i for i, o in enumerate(orgs)}
         self._base = base
         self._flat = self._upload(buf[:total])
 
@@ -889,7 +826,7 @@ class ShardedTorchDPBatcher(TorchDPBatcher):
         return out if mode == "counts" else out[0]
 
 
-class TorchHybridDPBatcher(_JobListBatcher):
+class TorchHybridDPBatcher:
     """Big counts-mode DP jobs go to the torch device, small jobs to the
     native host engine, overlapped: the device leg runs in a thread while
     the host threads chew the small jobs.  Consensus jobs ride the device
@@ -914,10 +851,6 @@ class TorchHybridDPBatcher(_JobListBatcher):
                 cell_threshold = int(env_cells)
             else:
                 cell_threshold = 1 << 18
-                if not native.available():
-                    # the host leg's oracle fallback is far slower than
-                    # any device launch: ship every counts job
-                    cell_threshold = 0
         self.cell_threshold = cell_threshold
         if min_device_cells is None:
             min_device_cells = int(os.environ.get(
@@ -941,7 +874,6 @@ class TorchHybridDPBatcher(_JobListBatcher):
         # the device leg's flat upload is deferred to its thread, once a
         # device-bound job set materializes
         self.host.begin_batch(orgs)
-        self._index = self.host._index
         self._batch_orgs = orgs
 
     def run_table(self, t: JobTable) -> tuple[np.ndarray, tuple | None]:
@@ -1129,7 +1061,7 @@ def walk_batch(states: list[ReadState], cfg: MTRConfig, pos_sel=None,
             with TIMERS.span("mtr.walk.device", "walks"):
                 res = dbg_walk_device_batch(orgs, lens, ridx_a, qs_a, qe_a,
                                             k_a, device)
-        elif cfg.use_native and native.available() and n_q:
+        elif cfg.use_native and n_q:
             with TIMERS.span("mtr.walk.native", "walks"):
                 if _use_mf_filter(cfg, n_q, device):
                     res = _filtered_walks(orgs, lens, ridx_a, qs_a, qe_a,
@@ -1156,12 +1088,11 @@ def walk_batch(states: list[ReadState], cfg: MTRConfig, pos_sel=None,
                     if q.candidates:
                         queries.append(q)
 
-        if native.available():
-            # the walk engine's measured init / count-table sections (zeros
-            # unless -c enabled them)
-            init_s, count_s, _walk_s = native.read_stage_timers()
-            TIMERS.add("initialize", init_s)
-            TIMERS.add("count_table", count_s)
+        # the walk engine's measured init / count-table sections (zeros
+        # unless -c enabled them)
+        init_s, count_s, _walk_s = native.read_stage_timers()
+        TIMERS.add("initialize", init_s)
+        TIMERS.add("count_table", count_s)
         TIMERS.count("speculative_queries", n_q)
         TIMERS.count("walk_hit_queries", len(queries))
     return queries

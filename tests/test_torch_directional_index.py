@@ -504,7 +504,6 @@ def test_sliders_a_warp_follow_the_span_and_the_bins():
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "mtr_tpu_torch", "csrc")
 CU = os.path.join(CSRC, "directional_index.cu")
-CU_V1 = os.path.join(CSRC, "directional_index_v1.cu")
 
 
 def _binding_table(tree, fn_name):
@@ -526,31 +525,24 @@ def _c_entries(path):
 
 
 def test_the_build_binds_the_di_kernels():
-    """_build.SOURCES names the kernel's source and BASELINE the first
-    design's, library()'s and baseline_library()'s tables bind each entry
-    point with as many arguments as the C function takes, the source's
-    bounds equal the module's, and no try/except in the module could give
-    way to the plain version on the card."""
+    """_build.SOURCES names the kernel's source, library()'s table binds
+    each entry point with as many arguments as the C function takes, the
+    source's bounds equal the module's, and no try/except in the module
+    could give way to the plain version on the card."""
     import ast
     import re
 
     from mtr_tpu_torch.ops import _build
 
-    assert CU in _build.SOURCES and CU not in _build.BASELINE
-    assert CU_V1 in _build.BASELINE and CU_V1 not in _build.SOURCES
+    assert CU in _build.SOURCES
     with open(_build.__file__) as f:
         tree = ast.parse(f.read())
-    for path, fn, names in (
-            (CU, "library", {"mtr_di_sliding_l1", "mtr_di_pearson_moments",
-                             "mtr_di_resident_warps"}),
-            (CU_V1, "baseline_library", {"mtr_di_sliding_l1_v1",
-                                         "mtr_di_pearson_moments_v1"})):
-        table = _binding_table(tree, fn)
-        src, entries = _c_entries(path)
-        assert set(entries) == names
-        for name, params in entries.items():
-            assert len(table[name]) == len(params.split(",")), name
-    src, _ = _c_entries(CU)
+    table = _binding_table(tree, "library")
+    src, entries = _c_entries(CU)
+    assert set(entries) == {"mtr_di_sliding_l1", "mtr_di_pearson_moments",
+                            "mtr_di_resident_warps"}
+    for name, params in entries.items():
+        assert len(table[name]) == len(params.split(",")), name
     for const, value in (("kMaxSym", di.MAX_SYMBOLS),
                          ("kMaxPasses", di.MAX_PASSES),
                          ("kStartDiv", di.START_DIV),

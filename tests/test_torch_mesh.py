@@ -35,6 +35,7 @@ from mtr_tpu_torch.parallel.mesh import (
     sharded_wrap_dp_step,
     split_bounds,
 )
+from tests._dp_tables import dp_table
 from tests.test_wrap_dp_pallas import build_batch
 
 B, U, R = 8, 128, 256
@@ -267,7 +268,7 @@ def test_sharded_batcher_checks_every_shard(monkeypatch):
     bounds raises before anything is launched."""
     rng = np.random.default_rng(5)
     org = rng.integers(0, 4, 2000).astype(np.int32)
-    jobs = [tp.DPJob(org, qs, qs + 300 + 10 * qs, org[1:8], (1, 1, 3))
+    jobs = [(0, qs, qs + 300 + 10 * qs, org[1:8], (1, 1, 3), "counts")
             for qs in range(6)]
     batcher = tp.ShardedTorchDPBatcher(cpu_mesh(3))
     checked = []
@@ -277,17 +278,18 @@ def test_sharded_batcher_checks_every_shard(monkeypatch):
         lambda scal, starts, u_span: (checked.append(len(scal)),
                                       real(scal, starts, u_span)))
     batcher.begin_batch([org])
-    batcher.run(jobs)
+    got, _ = batcher.run_table(dp_table(jobs))
     assert checked == [2, 2, 2]
-    got = [j.result for j in jobs]
-    tp.HostDPBatcher().run(jobs)
-    assert got == [j.result for j in jobs]
-    bad = tp.DPJob(org, 1990, 2100, org[1:8], (1, 1, 3))  # past the reads
+    host = tp.HostDPBatcher()
+    host.begin_batch([org])
+    want, _ = host.run_table(dp_table(jobs))
+    np.testing.assert_array_equal(got, want)
+    bad = (0, 1990, 2100, org[1:8], (1, 1, 3), "counts")  # past the reads
     launched = []
     monkeypatch.setattr(tp, "sharded_resident",
                         lambda *a, **k: launched.append(a))
     with pytest.raises(ValueError, match="outside the resident reads"):
-        batcher.run(jobs + [bad])
+        batcher.run_table(dp_table(jobs + [bad]))
     assert not launched
 
 

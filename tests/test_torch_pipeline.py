@@ -17,9 +17,10 @@ import torch
 
 from mtr_tpu_torch import pipeline as tp
 from mtr_tpu_torch.config import MTRConfig
-from mtr_tpu_torch.pipeline import DPJob, HostDPBatcher
+from mtr_tpu_torch.pipeline import HostDPBatcher
 from mtr_tpu_torch.utils.timers import TIMERS
 from mtr_tpu_torch.ops import directional_index, wrap_dp_resident
+from tests._dp_tables import dp_table
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -147,57 +148,61 @@ def test_cuda_requests_raise_without_cuda():
         batcher.begin_batch([np.zeros(100, np.int32)])
 
 
-def _job(org, qs, qe, unit, mode="counts"):
-    return DPJob(org, qs, qe, np.asarray(unit, np.int32), (1, 1, 3), mode)
+def _host_run(orgs, table):
+    host = HostDPBatcher()
+    host.begin_batch(orgs)
+    return host.run_table(table)
 
 
 def test_device_batcher_matches_host_engine():
     rng = np.random.default_rng(3)
     orgs = [rng.integers(0, 4, 2000).astype(np.int32) for _ in range(3)]
     jobs = []
-    for org in orgs:
+    for r, org in enumerate(orgs):
         for ul in (3, 130, 300):
             qs = int(rng.integers(0, 500))
             unit = org[qs + 1 : qs + 1 + ul]
-            jobs.append(_job(org, qs, qs + int(rng.integers(ul, 1400)), unit))
+            jobs.append((r, qs, qs + int(rng.integers(ul, 1400)), unit,
+                         (1, 1, 3), "counts"))
+    table = dp_table(jobs)
     dev = tp.TorchDPBatcher(torch.device("cpu"))
     dev.begin_batch(orgs)
-    dev.run(jobs)
-    got = [j.result for j in jobs]
-    HostDPBatcher().run(jobs)
-    assert got == [j.result for j in jobs]
-    assert dev.cells == sum((j.qe - j.qs + 1) * len(j.unit) for j in jobs)
+    got, _ = dev.run_table(table)
+    want, _ = _host_run(orgs, table)
+    np.testing.assert_array_equal(got, want)
+    assert dev.cells == sum((qe - qs + 1) * len(unit)
+                            for _, qs, qe, unit, _, _ in jobs)
 
 
-def test_device_batcher_refuses_consensus_jobs():
-    """Consensus jobs are no longer refused: they run on the device path
-    (plain version here) and equal the host engine's, column for column,
-    in a mixed run with counts jobs."""
+def test_device_batcher_runs_consensus_jobs():
+    """Consensus jobs run on the device path (plain version here) and
+    equal the host engine's, column for column, in a mixed run with
+    counts jobs."""
     rng = np.random.default_rng(11)
     orgs = [rng.integers(0, 4, 1500).astype(np.int32) for _ in range(2)]
     jobs = []
-    for org in orgs:
+    for r, org in enumerate(orgs):
         for ul, scheme in ((4, (5, 1, 1)), (60, (1, 1, 3)), (140, (5, 1, 1)),
                            (300, (1, 1, 3))):
             qs = int(rng.integers(0, 400))
             unit = org[qs + 1 : qs + 1 + ul]
             qe = qs + int(rng.integers(ul, 900))
-            jobs.append(DPJob(org, qs, qe, unit, scheme, "consensus"))
-            jobs.append(DPJob(org, qs, qe, unit, scheme))
+            jobs.append((r, qs, qe, unit, scheme, "consensus"))
+            jobs.append((r, qs, qe, unit, scheme, "counts"))
+    table = dp_table(jobs)
     dev = tp.TorchDPBatcher(torch.device("cpu"))
     dev.begin_batch(orgs)
-    dev.run(jobs)
-    got = [j.result for j in jobs]
-    HostDPBatcher().run(jobs)
-    for job, res in zip(jobs, got):
-        if job.mode == "counts":
-            assert res == job.result
-        else:
-            np.testing.assert_array_equal(res[0], job.result[0])
-            np.testing.assert_array_equal(res[1], job.result[1])
-    cons = [j for j in jobs if j.mode == "consensus"]
-    assert dev.cons_cells == sum((j.qe - j.qs + 1) * len(j.unit)
-                                 for j in cons)
+    got_counts, got_cons = dev.run_table(table)
+    want_counts, want_cons = _host_run(orgs, table)
+    is_counts = table.mode == 0
+    np.testing.assert_array_equal(got_counts[is_counts],
+                                  want_counts[is_counts])
+    assert len(got_cons[0]) == len(jobs) // 2
+    np.testing.assert_array_equal(got_cons[0], want_cons[0])
+    np.testing.assert_array_equal(got_cons[1], want_cons[1])
+    assert dev.cons_cells == sum((qe - qs + 1) * len(unit)
+                                 for _, qs, qe, unit, _, mode in jobs
+                                 if mode == "consensus")
 
 
 def test_launch_names_its_mode(monkeypatch):
@@ -213,12 +218,51 @@ def test_launch_names_its_mode(monkeypatch):
 
     monkeypatch.setattr(tp.TorchDPBatcher, "_launch", spy)
     org = np.random.default_rng(5).integers(0, 4, 1500).astype(np.int32)
-    jobs = [DPJob(org, 10, 400, org[11:71], (1, 1, 3), "consensus"),
-            DPJob(org, 10, 400, org[11:71], (1, 1, 3))]
     dev = tp.TorchDPBatcher(torch.device("cpu"))
     dev.begin_batch([org])
-    dev.run(jobs)
+    dev.run_table(dp_table([(0, 10, 400, org[11:71], (1, 1, 3), mode)
+                            for mode in ("consensus", "counts")]))
     assert sorted(seen) == ["consensus", "counts"]
+
+
+def test_polish_rounds_run_a_shared_job_once():
+    """Two polish items that share (read, range, unit), as two k values of
+    one range give them: each round's consensus table and score table
+    hold one row for the pair, and both records come out revised (the
+    consensus mends the unit's wrong base) and equal."""
+    from mtr_tpu_torch.io.fasta import Read
+    from mtr_tpu_torch.records import RepeatRecord
+    from mtr_tpu_torch.utils.encoding import decode_bases, encode_bases
+
+    rng = np.random.default_rng(7)
+    unit, wrong = "ACGTTGCAAC", "ACGTAGCAAC"
+    codes = encode_bases(decode_bases(rng.integers(0, 4, 200).tolist())
+                         + unit * 14
+                         + decode_bases(rng.integers(0, 4, 200).tolist()))
+    org = np.append(codes, 0).astype(np.int32)
+    states = [tp.ReadState(Read("r0", codes), org, None, None, None, 0)]
+    host = HostDPBatcher()
+    host.begin_batch([org])
+    qs, qe = 150, 400
+    counts, _ = host.run_table(tp.job_table([0], [qs], [qe], [wrong],
+                                            ((1, 1, 3),), "counts")[0])
+    # kmer 12 > period 10: polish_repeat leaves the unit to the rounds
+    rr = RepeatRecord(read_id="r0", input_len=len(codes), rep_period=10,
+                      kmer=12, string=wrong, string_score=[2] * 10)
+    tp.apply_counts(rr, qs, 10, (1, 1, 3), counts[0].tolist())
+    before = rr.copy()
+    items = [(tp.RangeQuery(0, qs, qe, 50, k), rr.copy()) for k in (12, 13)]
+    tables = []
+    real = host.run_table
+    host.run_table = lambda t: tables.append(
+        [tp.MODES[m] for m in t.mode]) or real(t)
+    jobs = TIMERS.counters["dp_jobs"]
+    tp._polish_phase(host, states, items, MTRConfig())
+    assert tables == [["consensus"], ["counts"]] * 2
+    assert TIMERS.counters["dp_jobs"] - jobs == 4
+    (_, a), (_, b) = items
+    assert a == b and a != before
+    assert a.string == unit and a.match_ratio() > before.match_ratio()
 
 
 def _golden_lines(name, read_ids):
@@ -371,7 +415,8 @@ def test_hybrid_reraises_device_leg_failure(monkeypatch):
                                  min_device_cells=0)
     hy.begin_batch([org])
     with pytest.raises(RuntimeError, match="device leg fault"):
-        hy.run([_job(org, 0, 2000, [0, 1, 2])])
+        hy.run_table(dp_table([(0, 0, 2000, [0, 1, 2], (1, 1, 3),
+                                "counts")]))
 
 
 _NO_JAX = r"""

@@ -157,6 +157,7 @@ def test_counts_jobs_share_one_launch(monkeypatch):
     ceil(unit_len / 32) columns a lane): unit rows 32 * C_max wide,
     longest job first; the results equal the host engine's."""
     from mtr_tpu_torch import pipeline as tp
+    from tests._dp_tables import dp_table
 
     seen = []
     real = tp.wrap_dp_counts
@@ -168,20 +169,21 @@ def test_counts_jobs_share_one_launch(monkeypatch):
     monkeypatch.setattr(tp, "wrap_dp_counts", spy)
     rng = np.random.default_rng(32)
     org = rng.integers(0, 4, 3000).astype(np.int32)
-    jobs = [tp.DPJob(org, qs, qs + rl, org[qs + 1 : qs + 1 + ul], (1, 1, 3))
+    jobs = [(0, qs, qs + rl, org[qs + 1 : qs + 1 + ul], (1, 1, 3), "counts")
             for qs, rl, ul in ((0, 400, 1), (10, 500, 32), (20, 300, 33),
                                (30, 900, 64), (40, 700, 200), (50, 800, 224),
                                (60, 600, 225), (70, 1000, 300))]
     dev = tp.TorchDPBatcher(torch.device("cpu"))
     dev.begin_batch([org])
-    dev.run(jobs)
+    got, _ = dev.run_table(dp_table(jobs))
     assert len(seen) == 1
     span, width, rlens = seen[0]
     assert span == width == 320  # C = 10 for the 300-base unit
     assert rlens == sorted(rlens, reverse=True) and len(rlens) == len(jobs)
-    got = [j.result for j in jobs]
-    tp.HostDPBatcher().run(jobs)
-    assert got == [j.result for j in jobs]
+    host = tp.HostDPBatcher()
+    host.begin_batch([org])
+    want, _ = host.run_table(dp_table(jobs))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_counts_value_bound_uses_the_lane_span():

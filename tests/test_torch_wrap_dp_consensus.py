@@ -275,18 +275,19 @@ def test_packed_moves_round_trip_and_walk(u_pad):
     np.testing.assert_array_equal(got, want)
 
 
-def _mixed_consensus_jobs(dpjob):
-    """Consensus jobs of units 4 to 480 (C 1 to 15) over two reads."""
+def _mixed_consensus_jobs():
+    """Consensus jobs of units 4 to 480 (C 1 to 15) over two reads, as
+    (read, qs, qe, unit, scheme, mode) tuples."""
     rng = np.random.default_rng(17)
     orgs = [rng.integers(0, 4, 1400).astype(np.int32) for _ in range(2)]
     jobs = []
-    for org in orgs:
+    for r, org in enumerate(orgs):
         for ul, scheme in ((4, (5, 1, 1)), (60, (1, 1, 3)), (140, (5, 1, 1)),
                            (300, (1, 3, 1)), (480, (1, 1, 3))):
             qs = int(rng.integers(0, 300))
             unit = org[qs + 1 : qs + 1 + ul]
             qe = qs + int(rng.integers(ul, ul + 500))
-            jobs.append(dpjob(org, qs, qe, unit, scheme, "consensus"))
+            jobs.append((r, qs, qe, unit, scheme, "consensus"))
     return orgs, jobs
 
 
@@ -298,8 +299,9 @@ def test_batcher_one_consensus_launch_for_every_width(monkeypatch, cap):
     moves each fit the cap.  The (500, 9) blocks equal mtr_tpu's host
     engine either way."""
     from mtr_tpu_torch import pipeline as tp
+    from tests._dp_tables import dp_table
 
-    orgs, jobs = _mixed_consensus_jobs(tp.DPJob)
+    orgs, jobs = _mixed_consensus_jobs()
     calls = []
     real = tp.wrap_dp_consensus
 
@@ -313,13 +315,14 @@ def test_batcher_one_consensus_launch_for_every_width(monkeypatch, cap):
     monkeypatch.setattr(tp, "MOVES_BYTES_CAP", cap)
     dev = tp.TorchDPBatcher(torch.device("cpu"))
     dev.begin_batch(orgs)
-    dev.run(jobs, deduped=True)
+    _, (cons, miss) = dev.run_table(dp_table(jobs))
 
-    ref_orgs, ref = _mixed_consensus_jobs(DPJob)
+    ref = [DPJob(orgs[r], qs, qe, unit, scheme, mode)
+           for r, qs, qe, unit, scheme, mode in jobs]
     HostDPBatcher().run(ref, deduped=True)
-    for job, want in zip(jobs, ref):
-        np.testing.assert_array_equal(job.result[0], want.result[0])
-        np.testing.assert_array_equal(job.result[1], want.result[1])
+    for q, want in enumerate(ref):
+        np.testing.assert_array_equal(cons[q], want.result[0])
+        np.testing.assert_array_equal(miss[q], want.result[1])
     assert all(u_span == 480 for u_span, _, _ in calls)
     lens = [rl for _, rls, _ in calls for rl in rls]
     assert lens == sorted(lens, reverse=True) and len(lens) == len(jobs)
